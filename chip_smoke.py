@@ -6,9 +6,17 @@
 Phases (any failure exits non-zero and prints no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. hold each kernel bit-exact against its plain PyTorch version at the
-     padded shapes of VGG11 layers c1 and c5 at batch 128, plus edge cases
-     (delta = 0, empty tiles, full and empty masks);
+  3. hold the NSD, pack and int8 matmul kernels bit-exact against their
+     plain PyTorch versions at the padded shapes of VGG11 layers c1 and c5
+     at batch 128, plus edge cases (delta = 0, empty tiles, full and empty
+     masks);
+  3b. hold the levels compact and expand and the bitmap-unpack kernels bit
+     for bit against their plain versions at c1's residual size at batch
+     128 (2,097,152 elements, 8,192 chunks) and at the edges (an all-zero
+     and an all-non-zero chunk, one chunk, n = 1000 through the wire
+     container), and the dequant product within its band (relative L2
+     <= 8 sqrt(K) 2^-24 for a K-long contraction) at the c1 and c5 dx and
+     dW shapes with full, empty and partial masks;
   4. train VGG11-CIFAR at full width, batch 128, 5 steps, variant=kernel,
      through ``repro_torch.train.classifier.train_classifier``; check the
      loss is finite, the launch counts (per step: NSD 11, pack 11, bsp 21,
@@ -17,13 +25,26 @@ Phases (any failure exits non-zero and prints no result):
      of the same steps run on the plain versions, and that step 1's
      gradients agree with the plain versions' (relative L2 <= 1e-5 per
      parameter; the kernels are bit-exact, so 0 is expected);
-  5. capture every kernel input of one step, hold each call bit-exact
-     against its plain version again, and time kernel, plain version and
-     the library yardstick (``torch._int_mm`` on the dense int8 operands,
-     for the matmul) with CUDA events, beside the least time the card could
-     take (bytes over 3.35 TB/s, or operations over the peak rate); then
-     break one step's device time down with torch.profiler;
-  6. print one JSON line naming the three kernels;
+  4b. the same training with ``memory="default=nsd"``: every dithered
+     layer's input is NSD-encoded into the wire container in the forward
+     and decoded in the backward. Check the loss is finite, the launch
+     counts (per step: NSD 22, pack 22, compact 11, unpack 11, expand 11,
+     bsp 21), no fallback, ``residual_compression`` equal to the plain
+     versions' run (relative 1e-6), sparsity within 8 points of phase 4's
+     run, step-1 gradients against the plain versions (relative L2 <=
+     1e-5), and step-1 BatchNorm and bias gradients and dither telemetry
+     identical to the fp32-residual step's (only weight gradients move);
+  4c. the f32-operand backward: ``ops.dithered_backward_matmuls(...,
+     int8_operands=False)`` on every layer's captured (g, x, w, u) of one
+     step, held to its plain versions and to the paper variant's f32
+     products within the dequant band, with its launches counted;
+  5. capture every kernel input of one step, hold each call against its
+     plain version again, and time kernel, plain version and the library
+     yardstick with CUDA events, beside the least time the card could take
+     (bytes over 3.35 TB/s, or operations over the peak rate); then break
+     one step's device time down with torch.profiler, for fp32 and for nsd
+     residuals, and print one step's peak device memory for each;
+  6. print one JSON line naming the seven kernels;
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -45,8 +66,18 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 BATCH, STEPS, SEED = 128, 5, 0
 PER_STEP = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_int8": 21}
+# memory="default=nsd": each of the 11 layers encodes its input (NSD, pack,
+# compact) in the forward and decodes it (unpack, expand) in the backward
+NSD_PER_STEP = {"nsd_quant": 22, "bitmap_pack": 22, "bsp_matmul_int8": 21,
+                "levels_compact": 11, "bitmap_unpack": 11, "levels_expand": 11,
+                "bsp_matmul_dequant": 0}
+# the f32-operand backward of the 11 layers: one NSD and pack each, both
+# products on the dequant kernel
+F32_OPERAND_LAUNCHES = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_dequant": 22}
+MEMORY = "default=nsd"
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
+COMPRESSION_BAND = 1e-6  # relative, kernels vs plain versions
 
 KERNELS = {
     "nsd_quant": ("src/repro_torch/kernels/csrc/nsd_quant.cu",
@@ -55,6 +86,14 @@ KERNELS = {
                     "src/repro/kernels/pack/pack.py:52"),
     "bsp_matmul_int8": ("src/repro_torch/kernels/csrc/bsp_matmul_int8.cu",
                         "src/repro/kernels/bsp_matmul/bsp_matmul.py:63"),
+    "bitmap_unpack": ("src/repro_torch/kernels/csrc/pack.cu",
+                      "src/repro/kernels/pack/pack.py:67"),
+    "levels_compact": ("src/repro_torch/kernels/csrc/levels.cu",
+                       "src/repro/kernels/levels/levels.py:112"),
+    "levels_expand": ("src/repro_torch/kernels/csrc/levels.cu",
+                      "src/repro/kernels/levels/levels.py:123"),
+    "bsp_matmul_dequant": ("src/repro_torch/kernels/csrc/bsp_matmul_dequant.cu",
+                           "src/repro/kernels/bsp_matmul/bsp_matmul.py:44"),
 }
 
 
@@ -71,9 +110,16 @@ def log(*a):
     print(*a, flush=True)
 
 
-def profile_step(torch, step_fn, card, steps=3):
+def f32_band(K: int) -> float:
+    """Relative L2 band of two f32 evaluations of a K-long contraction in
+    different orders: the rounding of a sum of K random-sign terms grows as
+    sqrt(K) u relative to the result (u = 2^-24); 8x that."""
+    return 8 * math.sqrt(K) * 2.0 ** -24
+
+
+def profile_step(torch, step_fn, card, label, steps=3):
     """Print the device time per step of the top kernels, of the port's
-    three kernels, and the device's busy share of the wall time, from
+    kernels, and the device's busy share of the wall time, from
     torch.profiler over ``steps`` forward+backward passes. Informational:
     where the profiler records no device time it says so and moves on."""
     from torch.profiler import ProfilerActivity, profile
@@ -99,13 +145,16 @@ def profile_step(torch, step_fn, card, steps=3):
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
     if not rows:
-        log("phase 5b: torch.profiler recorded no device time: not measured")
+        log(f"phase 5b ({label}): torch.profiler recorded no device time: not measured")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"phase 5b: forward+backward of one batch-{BATCH} step: wall {wall_ms:.3f} ms, "
-        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) ({card})")
-    for name in ("nsd_quant_kernel", "bitmap_pack_kernel", "bsp_int8_kernel"):
+    log(f"phase 5b ({label}): forward+backward of one batch-{BATCH} step: wall "
+        f"{wall_ms:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{sum(r[1] for r in rows)} device kernels launched ({card})")
+    for name in ("nsd_quant_kernel", "bitmap_pack_kernel", "bsp_int8_kernel",
+                 "levels_compact_kernel", "bitmap_unpack_kernel",
+                 "levels_expand_kernel", "bsp_dequant_kernel"):
         ms = sum(r[0] for r in rows if name in r[2])
         n = sum(r[1] for r in rows if name in r[2])
         log(f"  port kernel {name}: {ms:.4f} ms device time per step over {n} launches")
@@ -139,7 +188,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from repro_torch.core.int8 import absmax_int8
-    from repro_torch.kernels import build, bsp_matmul, nsd_quant, ops, pack
+    from repro_torch.kernels import build, bsp_matmul, levels, nsd_quant, ops, pack
+    from repro_torch.quant import wire
+
+    # every wrapper, its module and its plain version
+    modules = {"nsd_quant": (nsd_quant, "nsd_quantize_blocked"),
+               "bitmap_pack": (pack, "bitmap_pack_blocked"),
+               "bsp_matmul_int8": (bsp_matmul, "bsp_matmul_int8"),
+               "bitmap_unpack": (pack, "bitmap_unpack"),
+               "levels_compact": (levels, "levels_compact"),
+               "levels_expand": (levels, "levels_expand"),
+               "bsp_matmul_dequant": (bsp_matmul, "bsp_matmul")}
+    kernel = {k: getattr(m, a) for k, (m, a) in modules.items()}
+    plain = {k: getattr(m, a + "_plain") for k, (m, a) in modules.items()}
+
+    @contextlib.contextmanager
+    def swapped(fns):
+        """Route the named wrappers through other functions for a while."""
+        saved = {k: getattr(*modules[k]) for k in fns}
+        for k, fn in fns.items():
+            setattr(*modules[k], fn)
+        try:
+            yield
+        finally:
+            for k, fn in saved.items():
+                setattr(*modules[k], fn)
+
+    def plain_kernels():
+        """Route the ops through the kernels' plain versions (on the card)."""
+        return swapped(plain)
 
     # -- phase 2 ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -148,14 +225,29 @@ def main() -> int:
 
     max_err = {k: 0.0 for k in KERNELS}
 
-    def same(kernel, got, want, what):
+    def same(kname, got, want, what):
         for g, w in zip(got, want):
             check(g.shape == w.shape and g.dtype == w.dtype,
-                  f"{kernel} {what}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+                  f"{kname} {what}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
             err = float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
-            max_err[kernel] = max(max_err[kernel], err)
-            check(torch.equal(g, w), f"{kernel} {what}: differs from the plain "
+            max_err[kname] = max(max_err[kname], err)
+            check(torch.equal(g, w), f"{kname} {what}: differs from the plain "
                                      f"version (max abs err {err})")
+
+    def banded(kname, got, want, K, what):
+        """got within the f32 band of want (a K-long contraction); exact
+        zeros where want is all zero (an empty mask)."""
+        check(got.shape == want.shape, f"{kname} {what}: {got.shape} vs {want.shape}")
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        max_err[kname] = max(max_err[kname], err)
+        ref = float(want.double().norm())
+        if ref == 0.0:
+            check(not got.any(), f"{kname} {what}: non-zero output, want zeros")
+            return 0.0
+        rel = float((got.double() - want.double()).norm()) / ref
+        check(rel <= f32_band(K), f"{kname} {what}: relative L2 {rel} > "
+                                  f"{f32_band(K)} (K = {K})")
+        return rel
 
     # -- phase 3 ----------------------------------------------------------
     dev = torch.device("cuda")
@@ -194,26 +286,76 @@ def main() -> int:
     log(f"phase 3: kernels bit-exact against their plain versions "
         f"(max abs err {max(max_err.values())})")
 
+    # -- phase 3b ---------------------------------------------------------
+    def sparse_levels(C, density):
+        vals = torch.randint(1, 128, (C, 256), device=dev, generator=gen)
+        sign = torch.randint(0, 2, (C, 256), device=dev, generator=gen) * 2 - 1
+        keep = torch.rand((C, 256), device=dev, generator=gen) < density
+        return torch.where(keep, vals * sign, 0).to(torch.int8)
+
+    # c1's residual at batch 128 (128 x 16 x 16 x 64 = 8,192 chunks) at the
+    # non-zero share NSD gives at s = 1, an all-zero and an all-non-zero chunk
+    k = sparse_levels(8192, 0.6)
+    k[0] = 0
+    k[1] = sparse_levels(1, 1.0)[0]
+    for what, kk in (("c1 residual", k), ("one chunk", sparse_levels(1, 0.4))):
+        got = levels.levels_compact(kk)
+        same("levels_compact", got, levels.levels_compact_plain(kk), what)
+        mask = (kk != 0).to(torch.int8)
+        out = levels.levels_expand(got[0], mask)
+        same("levels_expand", (out,), (levels.levels_expand_plain(got[0], mask),), what)
+        check(torch.equal(out, kk), f"levels_expand {what}: not the inverse of compact")
+        bitmap = pack.bitmap_pack_blocked(torch.nn.functional.pad(
+            kk, (0, 0, 0, (-kk.shape[0]) % 128)))[0][:kk.shape[0]]
+        unpacked = pack.bitmap_unpack(bitmap)
+        same("bitmap_unpack", (unpacked,), (pack.bitmap_unpack_plain(bitmap),), what)
+        check(torch.equal(unpacked, mask), f"bitmap_unpack {what}: not the mask")
+    counts = levels.levels_compact(k)[1]
+    check(int(counts[0]) == 0 and int(counts[1]) == 256, "edge chunk counts")
+    for n in (1000, 2_097_152):  # not a chunk multiple; c1's residual size
+        xr = torch.relu(torch.randn(n, device=dev, generator=gen))
+        ur = torch.rand(n, device=dev, generator=gen) - 0.5
+        pk, pp = wire.pack_nsd(xr, ur, 1.0), wire.pack_nsd(xr, ur, 1.0, backend="plain")
+        for f in ("levels", "bitmap", "deltas", "nnz"):
+            check(torch.equal(getattr(pk, f), getattr(pp, f)),
+                  f"wire container n={n}: {f} differs from the plain route")
+        check(torch.equal(wire.unpack_nsd(pk), wire.unpack_nsd(pp, backend="plain")),
+              f"wire decode n={n} differs from the plain route")
+
+    # the dequant product at the c1 and c5 dx and dW shapes: (T, N, K_in)
+    rels = []
+    for name, (T, N, K) in {"c1": (32768, 128, 640), "c5": (2048, 512, 4608)}.items():
+        kq = torch.where(torch.rand(T, N, device=dev, generator=gen) < 0.2,
+                         torch.randint(-6, 7, (T, N), device=dev, generator=gen),
+                         0).to(torch.int8)
+        _, _, mask = pack.bitmap_pack_blocked(kq)
+        w_t = torch.randn(N, K, device=dev, generator=gen)  # w^T, (N, K)
+        x = torch.relu(torch.randn(T, K, device=dev, generator=gen))
+        d = torch.tensor(3e-3, device=dev)
+        partial = (torch.rand(mask.shape, device=dev, generator=gen) < 0.5).to(torch.int32)
+        for mname, m in (("full", torch.ones_like(mask)), ("partial", partial),
+                         ("empty", torch.zeros_like(mask))):
+            for ta, b, contraction in ((False, w_t, N), (True, x, T)):
+                got = bsp_matmul.bsp_matmul(kq, d, b, m, trans_a=ta)
+                want = bsp_matmul.bsp_matmul_plain(kq, d, b, m, trans_a=ta)
+                rels.append(banded("bsp_matmul_dequant", got, want, contraction,
+                                   f"{name} {'dW' if ta else 'dx'} mask={mname}"))
+    torch.cuda.synchronize()
+    log(f"phase 3b: compact, expand and unpack bit-exact against their plain "
+        f"versions (max abs err {max(max_err[k] for k in ('levels_compact', 'levels_expand', 'bitmap_unpack'))}), "
+        f"wire container n=1000 and n=2097152 identical on both routes; dequant "
+        f"within its band (worst relative L2 {max(rels):.3e}, max abs err "
+        f"{max_err['bsp_matmul_dequant']:.3e})")
+
     # -- phase 4 ----------------------------------------------------------
     from repro_torch.configs.paper_models import vgg11_cifar
+    from repro_torch.core import dithered
     from repro_torch.core.policy import DitherCtx, DitherPolicy
     from repro_torch.data.synthetic import ClassifConfig, classification_batch
+    from repro_torch.memory.policy import as_memory_policy
     from repro_torch.models.cnn import CNN, loss_fn
+    from repro_torch.obs import metrics
     from repro_torch.train.classifier import train_classifier
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        """Route the ops through the kernels' plain versions (on the card)."""
-        saved = (nsd_quant.nsd_quantize_blocked, pack.bitmap_pack_blocked,
-                 bsp_matmul.bsp_matmul_int8)
-        nsd_quant.nsd_quantize_blocked = nsd_quant.nsd_quantize_blocked_plain
-        pack.bitmap_pack_blocked = pack.bitmap_pack_blocked_plain
-        bsp_matmul.bsp_matmul_int8 = bsp_matmul.bsp_matmul_int8_plain
-        try:
-            yield
-        finally:
-            (nsd_quant.nsd_quantize_blocked, pack.bitmap_pack_blocked,
-             bsp_matmul.bsp_matmul_int8) = saved
 
     cfg = vgg11_cifar()
     policy = DitherPolicy(variant="kernel", s=2.0, collect_stats=True)
@@ -242,27 +384,99 @@ def main() -> int:
                          channels=cfg.in_channels, noise=0.5, seed=SEED)
     batch0 = classification_batch(dcfg, 0, BATCH)
 
-    def step1_grads():
+    def step1(memory=None, collect=False):
+        """Step 1's loss, gradients and dither telemetry rows."""
         net = CNN(cfg, seed=SEED)
-        ctx = DitherCtx(policy.replace(collect_stats=False), seed=SEED, step=0)
+        ctx = DitherCtx(policy.replace(collect_stats=collect), seed=SEED,
+                        step=0, memory=as_memory_policy(memory))
+        metrics.reset()
         loss = loss_fn(net, batch0, ctx=ctx)
         loss.backward()
-        return float(loss.detach()), {n: p.grad for n, p in net.named_parameters()}
+        rows = {t: metrics.rows(t) for t in metrics.tags()}
+        return (float(loss.detach()),
+                {n: p.grad for n, p in net.named_parameters()}, rows)
 
-    loss_k, grads_k = step1_grads()
+    def worst_rel(grads, ref_grads, what):
+        worst = 0.0
+        for n, gk in grads.items():
+            check(bool(torch.isfinite(gk).all()), f"{what}: non-finite gradient {n}")
+            ref = float(ref_grads[n].norm())
+            rel = float((gk - ref_grads[n]).norm()) / ref if ref else float(gk.norm())
+            worst = max(worst, rel)
+            check(rel <= GRAD_BAND, f"{what}: step-1 gradient {n}: rel L2 {rel}")
+        return worst
+
+    loss_k, grads_k, _ = step1()
     with plain_kernels():
-        loss_p, grads_p = step1_grads()
-    worst = 0.0
-    for n, gk in grads_k.items():
-        check(bool(torch.isfinite(gk).all()), f"non-finite gradient {n}")
-        ref = float(grads_p[n].norm())
-        rel = float((gk - grads_p[n]).norm()) / ref if ref else float(gk.norm())
-        worst = max(worst, rel)
-        check(rel <= GRAD_BAND, f"step-1 gradient {n}: rel L2 {rel}")
+        loss_p, grads_p, _ = step1()
+    worst = worst_rel(grads_k, grads_p, "fp32 residuals")
     log(f"phase 4: step-1 loss {loss_k} (plain {loss_p}); worst relative L2 "
         f"gradient difference kernel vs plain {worst}")
 
-    # -- phase 5 ----------------------------------------------------------
+    # -- phase 4b: the same training with NSD-encoded residuals ------------
+    ops.KERNEL_FALLBACKS.clear()
+    build.reset_launches()
+    res_nsd = train_classifier(cfg, policy, steps=STEPS, batch=BATCH, seed=SEED,
+                               memory=MEMORY)
+    launches_nsd = dict(build.LAUNCHES)
+    log(f"phase 4b: memory={MEMORY!r} kernel path {json.dumps(res_nsd)}")
+    log(f"phase 4b: launches over {STEPS} steps {launches_nsd}")
+    check(math.isfinite(res_nsd["final_loss"]), f"loss {res_nsd['final_loss']}")
+    for kname, n in NSD_PER_STEP.items():
+        check(launches_nsd[kname] == n * STEPS,
+              f"{kname}: {launches_nsd[kname]} launches, want {n} x {STEPS}")
+    check(not ops.KERNEL_FALLBACKS, f"fallbacks {ops.KERNEL_FALLBACKS}")
+    check("residual_compression" in res_nsd, "no residual_compression in the result")
+    with plain_kernels():
+        build.reset_launches()
+        res_nsd_plain = train_classifier(cfg, policy, steps=STEPS, batch=BATCH,
+                                         seed=SEED, memory=MEMORY)
+        check(not any(build.LAUNCHES.values()), "plain run launched a kernel")
+    log(f"phase 4b: plain versions {json.dumps(res_nsd_plain)}")
+    comp, comp_plain = res_nsd["residual_compression"], res_nsd_plain["residual_compression"]
+    check(abs(comp - comp_plain) <= COMPRESSION_BAND * comp_plain,
+          f"residual_compression {comp} vs plain {comp_plain}")
+    check(abs(res_nsd["sparsity"] - res["sparsity"]) <= SPARSITY_BAND,
+          f"sparsity {res_nsd['sparsity']} vs fp32 residuals {res['sparsity']}")
+
+    loss_n, grads_n, _ = step1(MEMORY)
+    with plain_kernels():
+        _, grads_np, _ = step1(MEMORY)
+    worst_n = worst_rel(grads_n, grads_np, "nsd residuals")
+    _, grads_fc, rows_fc = step1(None, collect=True)
+    _, grads_nc, rows_nc = step1(MEMORY, collect=True)
+    moved = 0
+    for n, g in grads_nc.items():
+        if n.endswith("_w"):
+            moved += not torch.equal(g, grads_fc[n])
+        else:
+            check(torch.equal(g, grads_fc[n]),
+                  f"nsd residuals moved the BatchNorm/bias gradient {n}")
+    check(rows_nc.keys() == rows_fc.keys() and all(
+        (rows_nc[t] == rows_fc[t]).all() for t in rows_fc),
+        "nsd residuals changed the dither telemetry")
+    log(f"phase 4b: residual_compression {comp} (plain versions {comp_plain}); "
+        f"step-1 loss {loss_n}; worst relative L2 gradient difference kernel vs "
+        f"plain {worst_n}; BatchNorm/bias gradients and {len(rows_fc)} telemetry "
+        f"rows identical to the fp32-residual step, {moved} of 11 weight "
+        f"gradients moved; step time {res_nsd['ms_per_step']:.2f} ms vs "
+        f"{res['ms_per_step']:.2f} ms with fp32 residuals ({card})")
+
+    # -- phase 4c: the f32-operand backward (int8_operands=False) ----------
+    captured = {}
+    real_products = dithered._kernel_products
+
+    def capturing(g2d, x2d, w, u, pol, name, need_dx):
+        captured[name] = (g2d.detach().clone(), x2d.detach().clone(),
+                          w.detach().clone(), u.clone(), pol.s)
+        return real_products(g2d, x2d, w, u, pol, name, need_dx)
+
+    dithered._kernel_products = capturing
+    try:
+        step1()
+    finally:
+        dithered._kernel_products = real_products
+    check(len(captured) == 11, f"captured {len(captured)} layers")
     calls = {k: [] for k in KERNELS}
 
     def recorder(kname, fn):
@@ -272,17 +486,49 @@ def main() -> int:
             return fn(*args, **kw)
         return rec
 
-    saved = (nsd_quant.nsd_quantize_blocked, pack.bitmap_pack_blocked,
-             bsp_matmul.bsp_matmul_int8)
-    nsd_quant.nsd_quantize_blocked = recorder("nsd_quant", saved[0])
-    pack.bitmap_pack_blocked = recorder("bitmap_pack", saved[1])
-    bsp_matmul.bsp_matmul_int8 = recorder("bsp_matmul_int8", saved[2])
-    try:
-        step1_grads()
-    finally:
-        (nsd_quant.nsd_quantize_blocked, pack.bitmap_pack_blocked,
-         bsp_matmul.bsp_matmul_int8) = saved
-    for kname, n in PER_STEP.items():
+    build.reset_launches()
+    with swapped({"bsp_matmul_dequant": recorder("bsp_matmul_dequant",
+                                                 kernel["bsp_matmul_dequant"])}):
+        outs = {n: ops.dithered_backward_matmuls(g, x, w, u, s, int8_operands=False)
+                for n, (g, x, w, u, s) in captured.items()}
+        torch.cuda.synchronize()
+    launches_f32 = dict(build.LAUNCHES)
+    for kname in KERNELS:
+        want = F32_OPERAND_LAUNCHES.get(kname, 0)
+        check(launches_f32[kname] == want,
+              f"f32-operand backward: {kname} {launches_f32[kname]} launches, want {want}")
+    worst_plain = worst_paper = 0.0
+    for n, (g, x, w, u, s) in captured.items():
+        with plain_kernels():
+            dx_p, dw_p = ops.dithered_backward_matmuls(g, x, w, u, s,
+                                                       int8_operands=False)
+        q = ops.quantize_and_mask(g, u, s)
+        gq = q.k[:g.shape[0], :g.shape[1]].to(torch.float32) * q.delta
+        dx, dw = outs[n]
+        T, N = g.shape
+        for got, plain_v, paper_v, K, what in (
+                (dx, dx_p, gq @ w.t(), N, "dx"), (dw, dw_p, x.t() @ gq, T, "dW")):
+            worst_plain = max(worst_plain, banded(
+                "bsp_matmul_dequant", got, plain_v, K, f"{n} {what} vs plain"))
+            rel = float((got - paper_v).norm() / paper_v.norm())
+            check(rel <= f32_band(K), f"{n} {what}: rel L2 {rel} against the paper "
+                                      f"variant's f32 product")
+            worst_paper = max(worst_paper, rel)
+    log(f"phase 4c: f32-operand backward of the 11 layers: launches "
+        f"{ {k: v for k, v in launches_f32.items() if v} }; worst relative L2 "
+        f"against the plain versions {worst_plain:.3e}, against the paper "
+        f"variant's f32 products {worst_paper:.3e}")
+    del outs
+
+    # -- phase 5 ----------------------------------------------------------
+    old = ("nsd_quant", "bitmap_pack", "bsp_matmul_int8")
+    resid = ("levels_compact", "bitmap_unpack", "levels_expand")
+    with swapped({k: recorder(k, kernel[k]) for k in old}):
+        step1()
+    with swapped({k: recorder(k, kernel[k]) for k in resid}):
+        step1(MEMORY)
+    for kname, n in list(PER_STEP.items()) + [(k, NSD_PER_STEP[k]) for k in resid] \
+            + [("bsp_matmul_dequant", F32_OPERAND_LAUNCHES["bsp_matmul_dequant"])]:
         check(len(calls[kname]) == n, f"captured {len(calls[kname])} {kname} calls")
 
     def time_ms(fn, launches=10, groups=5):
@@ -313,34 +559,86 @@ def main() -> int:
         log(f"  library yardstick unavailable: {err}")
         return None
 
-    plain = {"nsd_quant": nsd_quant.nsd_quantize_blocked_plain,
-             "bitmap_pack": pack.bitmap_pack_blocked_plain,
-             "bsp_matmul_int8": bsp_matmul.bsp_matmul_int8_plain}
-    kernel = {"nsd_quant": nsd_quant.nsd_quantize_blocked,
-              "bitmap_pack": pack.bitmap_pack_blocked,
-              "bsp_matmul_int8": bsp_matmul.bsp_matmul_int8}
+    def check_call(kname, args, kw, i):
+        got, want = kernel[kname](*args, **kw), plain[kname](*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if kname == "bsp_matmul_dequant":
+            k_st = args[0]
+            K = k_st.shape[0] if kw.get("trans_a") else k_st.shape[1]
+            banded(kname, got[0], want[0], K, f"path call {i}")
+        else:
+            same(kname, got, want, f"path call {i}")
+
+    libraries = {
+        "bsp_matmul_int8": "torch._int_mm on the dense int8 operands",
+        "levels_compact": "torch.masked_select(k, k != 0): compact and its assembly",
+        "levels_expand": "masked_scatter of the global levels: expand and its assembly",
+        "bsp_matmul_dequant": "torch.matmul on the dense dequantized f32 operands, TF32 off",
+    }
     rows = []
     for kname in KERNELS:
-        tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0)
-        have_library = kname == "bsp_matmul_int8"
+        tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
+                   route_ms=0.0)
+        have_library = kname in libraries
         for i, (args, kw) in enumerate(calls[kname]):
-            got, want = kernel[kname](*args, **kw), plain[kname](*args, **kw)
-            same(kname, got if isinstance(got, tuple) else (got,),
-                 want if isinstance(want, tuple) else (want,), f"path call {i}")
+            check_call(kname, args, kw, i)
             ms = time_ms(lambda: kernel[kname](*args, **kw))
             pms = time_ms(lambda: plain[kname](*args, **kw), launches=2, groups=3)
+            lib = route = None
             if kname == "nsd_quant":
                 M, N = args[0].shape
                 nbytes = M * N * (4 + 4 + 1) + (M // 128) * (N // 128) * 4 + 4
                 nops, rate = 5 * M * N, FP32_OPS_PER_S
                 shape = f"{M}x{N}"
-                lib = None
             elif kname == "bitmap_pack":
                 M, N = args[0].shape
                 nbytes = M * N + M * N // 8 + 2 * (M // 128) * (N // 128) * 4
                 nops, rate = 0, INT8_OPS_PER_S
                 shape = f"{M}x{N}"
-                lib = None
+            elif kname == "bitmap_unpack":
+                M, NB = args[0].shape
+                nbytes = M * NB + M * NB * 8
+                nops, rate = 0, INT8_OPS_PER_S
+                shape = f"{M}x{NB * 8}"
+            elif kname == "levels_compact":
+                k_c = args[0]
+                C = k_c.shape[0]
+                nbytes, nops, rate = 2 * C * 256 + 4 * C, 0, INT8_OPS_PER_S
+                shape = f"{C} chunks"
+                flat = k_c.reshape(-1)
+                lib = time_ms(lambda: torch.masked_select(flat, flat != 0))
+                route = time_ms(lambda: wire._compact_chunks(k_c))
+            elif kname == "levels_expand":
+                lv, m_c = args
+                C = lv.shape[0]
+                nbytes, nops, rate = 3 * C * 256, 0, INT8_OPS_PER_S
+                shape = f"{C} chunks"
+                occ = (m_c != 0).reshape(-1)
+                live = torch.arange(256, device=dev)[None, :] < occ.reshape(C, 256).sum(1, keepdim=True)
+                glob = lv[live]  # the global levels, compacted in order
+                levels_full = torch.nn.functional.pad(glob, (0, C * 256 - glob.numel()))
+                lib = time_ms(lambda: torch.zeros(C * 256, dtype=torch.int8, device=dev
+                                                  ).masked_scatter_(occ, glob))
+                bm = wire.pack_bitmap(occ.reshape(C, 256))
+                route = time_ms(lambda: wire._expand_chunks(levels_full, bm))
+            elif kname == "bsp_matmul_dequant":
+                k_st, d, b_op, mask = args
+                ta = kw.get("trans_a", False)
+                a_op = k_st.t() if ta else k_st
+                m_op = (mask.t() if ta else mask) != 0
+                M, K = a_op.shape
+                N = b_op.shape[1]
+                occupied = int(m_op.sum())
+                k_needed = int(m_op.any(0).sum())
+                nbytes = (occupied * 128 * 128 + k_needed * 128 * N * 4 + M * N * 4
+                          + mask.numel() * 4 + 4)
+                nops, rate = 2 * occupied * 128 * 128 * N, FP32_OPS_PER_S
+                shape = (f"{M}x{K}x{N} {'dW' if ta else 'dx'} "
+                         f"{occupied}/{m_op.numel()} tiles")
+                a_f = a_op.to(torch.float32) * d
+                lib = time_ms(lambda: torch.matmul(a_f, b_op))
+                del a_f
             else:
                 a, b, scale, mask = args
                 ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
@@ -358,43 +656,70 @@ def main() -> int:
                          f"{occupied}/{m_op.numel()} tiles")
                 fn = int_mm_fn(a_op.contiguous(), b_op.contiguous())
                 lib = time_ms(fn) if fn is not None else None
+            if have_library:
                 if lib is None:
                     have_library = False
                 else:
                     tot["library_ms"] += lib
+            if route is not None:
+                tot["route_ms"] += route
             t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
             tot["ms"] += ms
             tot["plain_ms"] += pms
             tot["t_bytes"] += t_b
             tot["t_ops"] += t_o
             log(f"  {kname} {shape}: {ms:.4f} ms (bound {max(t_b, t_o):.4f} ms, "
-                f"plain {pms:.4f} ms" + (f", library {lib:.4f} ms)" if lib is not None
-                                          else ")"))
+                f"plain {pms:.4f} ms"
+                + (f", with its assembly {route:.4f} ms" if route is not None else "")
+                + (f", library {lib:.4f} ms)" if lib is not None else ")"))
+        path_launches = (launches if kname in PER_STEP else launches_f32
+                         if kname == "bsp_matmul_dequant" else launches_nsd)[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": KERNELS[kname][0],
-            "replaces": KERNELS[kname][1], "launches": launches[kname],
+            "replaces": KERNELS[kname][1], "launches": path_launches,
             "max_abs_err": max_err[kname], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
             "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
             "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
             "library_ms": tot["library_ms"] if have_library else None,
         })
+        log(f"  {kname}: {len(calls[kname])} calls, {tot['ms']:.4f} ms, bound "
+            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), plain "
+            f"{tot['plain_ms']:.4f} ms"
+            + (f", with its assembly {tot['route_ms']:.4f} ms" if tot["route_ms"] else "")
+            + (f", library {tot['library_ms']:.4f} ms ({libraries[kname]})"
+               if have_library else ", library none"))
     torch.cuda.synchronize()
-    log(f"phase 5: per-kernel times are sums over the {sum(PER_STEP.values())} "
-        f"launches of one batch-{BATCH} step; step time kernel path "
-        f"{res['ms_per_step']:.2f} ms, plain versions {res_plain['ms_per_step']:.2f} ms "
-        f"({card})")
+    log(f"phase 5: per-kernel times are sums over the launches of one "
+        f"batch-{BATCH} step (the f32-operand backward's 22 products for the "
+        f"dequant kernel); step time kernel path {res['ms_per_step']:.2f} ms, "
+        f"plain versions {res_plain['ms_per_step']:.2f} ms; with nsd residuals "
+        f"{res_nsd['ms_per_step']:.2f} ms, plain versions "
+        f"{res_nsd_plain['ms_per_step']:.2f} ms ({card})")
 
     # -- phase 5b: where one step's device time goes (torch.profiler) -----
-    net = CNN(cfg, seed=SEED)
-    ctx = DitherCtx(policy.replace(collect_stats=False), seed=SEED, step=0)
+    # -- phase 5c: one step's peak device memory ---------------------------
+    for label, memory in (("fp32 residuals", None), (f"memory={MEMORY!r}", MEMORY)):
+        net = CNN(cfg, seed=SEED)
+        ctx = DitherCtx(policy.replace(collect_stats=False), seed=SEED, step=0,
+                        memory=as_memory_policy(memory))
 
-    def fwd_bwd():
-        for p in net.parameters():
-            p.grad = None
-        loss_fn(net, batch0, ctx=ctx).backward()
+        def fwd_bwd():
+            for p in net.parameters():
+                p.grad = None
+            loss_fn(net, batch0, ctx=ctx).backward()
 
-    profile_step(torch, fwd_bwd, card)
+        profile_step(torch, fwd_bwd, card, label)
+        fwd_bwd()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 5c ({label}): peak device memory of one batch-{BATCH} step "
+            f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB held between steps ({card})")
 
     # -- phases 6 and 7 ----------------------------------------------------
     print(json.dumps({"kernels": rows}))

@@ -20,18 +20,36 @@ Variants (``DitherPolicy.variant``):
 The noise of a layer is ``ctx.unit_noise(name, (T, N))`` for its 2-D
 cotangent. For a convolution the T rows run in the reference's NHWC order
 (b, h, w), so a fed reference draw lines up element for element.
+
+Residual memory (``repro_torch.memory``): the activation x that the
+weight-gradient product consumes is saved under the layer's residual mode
+(``DitherPolicy.residual``): the forward stores ``quant.encode(x)``, the
+backward decodes it. A convolution's x is encoded in the reference's NHWC
+order, so an ``nsd`` container and its noise draw
+(``ctx.resid_noise(name, (B, H, W, C))``) line up with the reference's, and
+is permuted back to NCHW after the decode. dx = g~ . W^T never reads x, so
+with any codec every cotangent, and so every BatchNorm and bias gradient,
+equals the fp32-residual run's; only dW moves. Mode ``remat`` saves nothing
+of the op: ``torch.utils.checkpoint`` reruns its forward in the backward,
+with telemetry stripped inside (the layer records a memory row, no dither
+row, as in the reference).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import quant
 from repro_torch.core import nsd
 from repro_torch.core.policy import VARIANT_KERNEL, DitherCtx, DitherPolicy
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics
+
+_DENSE_MODES = (quant.MODE_FP32, quant.MODE_REMAT)
 
 
 def quantize_cotangent(g2d: torch.Tensor, u: torch.Tensor,
@@ -55,17 +73,83 @@ def _kernel_products(g2d, x2d, w, u, pol: DitherPolicy, name: str,
     return ops.bsp_backward_from_quantized(q, x2d, w, need_dx=need_dx)
 
 
+# ---------------------------------------------------------------------------
+# residual store: encode in the forward, decode in the backward
+# ---------------------------------------------------------------------------
+
+def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
+                   dctx: DitherCtx, name: str, conv: bool) -> None:
+    """Encode x under the layer's mode and save it with w. An encoded
+    container is saved as its tensors (``save_for_backward``), its static
+    fields (shape, dtype, chunk) as attributes."""
+    mode = pol.residual
+    if mode in _DENSE_MODES:
+        enc = x
+    else:
+        xr = x.permute(0, 2, 3, 1).contiguous() if conv else x  # NHWC
+        noise = (dctx.resid_noise(name, xr.shape) if quant.needs_noise(mode)
+                 else None)
+        enc = quant.encode(mode, xr, noise)
+    if pol.collect_stats:
+        metrics.emit_memory(name, quant.measured_bytes(mode, enc),
+                            quant.capacity_bytes(mode, enc),
+                            quant.dense_nbytes(x.shape, x.dtype))
+    if isinstance(enc, torch.Tensor):
+        ctx.resid = None
+        ctx.save_for_backward(enc, w)
+        return
+    fields = [f.name for f in dataclasses.fields(enc)]
+    tensors = [n for n in fields if isinstance(getattr(enc, n), torch.Tensor)]
+    ctx.resid = (type(enc), tensors,
+                 {n: getattr(enc, n) for n in fields if n not in tensors})
+    ctx.save_for_backward(w, *(getattr(enc, n) for n in tensors))
+
+
+def _load_residual(ctx, conv: bool):
+    """(x, w) from the saved tensors, x decoded back to the op's layout."""
+    if ctx.resid is None:
+        return ctx.saved_tensors
+    cls, names, static = ctx.resid
+    w, *tensors = ctx.saved_tensors
+    x = quant.decode(ctx.pol.residual, cls(**dict(zip(names, tensors)), **static))
+    return (x.permute(0, 3, 1, 2).contiguous() if conv else x), w
+
+
+def _differentiable(*tensors: torch.Tensor) -> bool:
+    """Whether a backward can run: only then is a residual saved."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _apply_op(fn, x, w, pol: DitherPolicy, name: str) -> torch.Tensor:
+    """``fn(x, w, pol)`` under the layer's residual mode. ``remat`` runs it
+    under ``torch.utils.checkpoint`` with telemetry stripped (the backward
+    reruns the forward), and records the op inputs it keeps alive: measured
+    == capacity == dense."""
+    if pol.residual != quant.MODE_REMAT:
+        return fn(x, w, pol)
+    y = checkpoint(fn, x, w, pol.replace(collect_stats=False),
+                   use_reentrant=False, preserve_rng_state=False)
+    if pol.collect_stats:
+        nbytes = quant.dense_nbytes(x.shape, x.dtype)
+        metrics.emit_memory(name, nbytes, nbytes, nbytes)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions
+# ---------------------------------------------------------------------------
+
 class _DitheredDense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, dctx: DitherCtx, name: str):
-        ctx.save_for_backward(x, w)
-        ctx.dctx, ctx.name = dctx, name
+    def forward(ctx, x, w, pol: DitherPolicy, dctx: DitherCtx, name: str):
+        _save_residual(ctx, x, w, pol, dctx, name, conv=False)
+        ctx.pol, ctx.dctx, ctx.name = pol, dctx, name
         return torch.matmul(x, w)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        pol, name = ctx.dctx.resolve(ctx.name), ctx.name
+        x, w = _load_residual(ctx, conv=False)
+        pol, name = ctx.pol, ctx.name
         need_dx = ctx.needs_input_grad[0]
         x2d = x.reshape(-1, x.shape[-1])
         g2d = g.reshape(-1, g.shape[-1])
@@ -77,23 +161,23 @@ class _DitheredDense(torch.autograd.Function):
             dx2d = gq @ w.t() if need_dx else None
             dw = x2d.t() @ gq
         dx = dx2d.reshape(x.shape) if need_dx else None
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 class _DitheredConv2d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups,
-                dctx: DitherCtx, name: str):
-        ctx.save_for_backward(x, w)
-        ctx.geom = (stride, padding, dilation, groups)
-        ctx.dctx, ctx.name = dctx, name
-        return F.conv2d(x, w, None, stride, padding, dilation, groups)
+    def forward(ctx, x, w, geom, pol: DitherPolicy, dctx: DitherCtx,
+                name: str):
+        _save_residual(ctx, x, w, pol, dctx, name, conv=True)
+        ctx.geom = geom
+        ctx.pol, ctx.dctx, ctx.name = pol, dctx, name
+        return F.conv2d(x, w, None, *geom)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w = _load_residual(ctx, conv=True)
         stride, padding, dilation, groups = ctx.geom
-        pol, name = ctx.dctx.resolve(ctx.name), ctx.name
+        pol, name = ctx.pol, ctx.name
         need_dx = ctx.needs_input_grad[0]
         B, Co, Ho, Wo = g.shape
         g2d = g.permute(0, 2, 3, 1).reshape(-1, Co)  # rows (b, h, w): NHWC
@@ -122,7 +206,7 @@ class _DitheredConv2d(torch.autograd.Function):
                                                 padding, dilation, groups)
             dw = torch.nn.grad.conv2d_weight(x, w.shape, gq, stride, padding,
                                              dilation, groups)
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -130,8 +214,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           ) -> torch.Tensor:
     """y = x @ w (+ b), x (..., K), w (K, N); dithered backward when the
     context's policy covers ``name``, plain autograd otherwise."""
-    if ctx is not None and ctx.resolve(name) is not None:
-        y = _DitheredDense.apply(x, w, ctx, name)
+    pol = ctx.resolve(name) if ctx is not None else None
+    if pol is not None and _differentiable(x, w):
+        y = _apply_op(lambda xx, ww, p: _DitheredDense.apply(xx, ww, p, ctx,
+                                                             name),
+                      x, w, pol, name)
     else:
         y = torch.matmul(x, w)
     return y if b is None else y + b
@@ -144,9 +231,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """NCHW x OIHW convolution (+ b); dithered backward when the context's
     policy covers ``name``. A grouped convolution in the kernel variant is
     a counted fallback (``ops.KERNEL_FALLBACKS``) to the paper path."""
-    if ctx is not None and ctx.resolve(name) is not None:
-        y = _DitheredConv2d.apply(x, w, stride, padding, dilation, groups,
-                                  ctx, name)
+    pol = ctx.resolve(name) if ctx is not None else None
+    geom = (stride, padding, dilation, groups)
+    if pol is not None and _differentiable(x, w):
+        y = _apply_op(lambda xx, ww, p: _DitheredConv2d.apply(xx, ww, geom, p,
+                                                              ctx, name),
+                      x, w, pol, name)
     else:
         y = F.conv2d(x, w, None, stride, padding, dilation, groups)
     return y if b is None else y + b.reshape(1, -1, 1, 1)

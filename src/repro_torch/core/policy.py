@@ -15,16 +15,25 @@ therefore independent across layers, steps and data-parallel workers (the
 condition of the paper's averaging argument) and reproducible on one device
 type. ``DitherCtx.unit_noise`` is the seam through which tests feed the
 reference's own draw instead.
+
+Residual memory. ``DitherCtx.memory`` (a ``repro_torch.memory``
+``MemoryPolicy``) picks each dithered layer's residual mode, which
+:meth:`DitherCtx.resolve` stamps onto the layer's resolved policy
+(``DitherPolicy.residual``), as the reference's ``resolve`` stamps it onto
+its static spec. The ``nsd`` residual encode draws its own noise,
+``DitherCtx.resid_noise``: a second stream per layer, the layer's seed
+mixed once more with ``RESID_SALT``, independent of the cotangent's.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.quant.codecs import MODE_FP32, RESID_SALT, validate_mode
 
 VARIANT_OFF = "off"
 VARIANT_PAPER = "paper"
@@ -40,6 +49,9 @@ class DitherPolicy:
     s: float = 2.0  # Delta = s * std(grad): the paper's one knob
     exclude: Tuple[str, ...] = ()  # layer-name substrings left undithered
     collect_stats: bool = False  # record per-layer sparsity/bits/delta
+    # the layer's residual mode (a codec spec of repro_torch.quant), stamped
+    # by DitherCtx.resolve from its MemoryPolicy
+    residual: str = MODE_FP32
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -47,6 +59,7 @@ class DitherPolicy:
                              f"{VARIANTS}")
         if not self.s > 0:
             raise ValueError(f"DitherPolicy: s must be > 0, got {self.s!r}")
+        validate_mode(self.residual)
 
     @property
     def enabled(self) -> bool:
@@ -92,13 +105,29 @@ class DitherCtx:
     step: int = 0
     worker: int = 0
     device: Optional[torch.device] = None
+    # repro_torch.memory.MemoryPolicy selecting each layer's residual mode;
+    # None = dense fp32 residuals
+    memory: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def resolve(self, name: str) -> Optional[DitherPolicy]:
-        """The policy for layer ``name``, or None for plain backprop."""
-        return self.policy if self.policy.applies_to(name) else None
+        """The policy for layer ``name`` with its residual mode, or None for
+        plain backprop."""
+        if not self.policy.applies_to(name):
+            return None
+        if self.memory is not None:
+            mode = self.memory.mode_for(name)
+            if mode != self.policy.residual:
+                return self.policy.replace(residual=mode)
+        return self.policy
+
+    def _uniform(self, seed: int, shape) -> torch.Tensor:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return torch.rand(tuple(shape), generator=gen, device=self.device,
+                          dtype=torch.float32) - 0.5
 
     def unit_noise(self, name: str, shape) -> torch.Tensor:
         """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``.
@@ -106,7 +135,15 @@ class DitherCtx:
         The shape is that of the layer's 2-D cotangent (T, N), rows in the
         reference's NHWC order for a convolution.
         """
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(layer_seed(self.seed, self.step, self.worker, name))
-        return torch.rand(tuple(shape), generator=gen, device=self.device,
-                          dtype=torch.float32) - 0.5
+        return self._uniform(layer_seed(self.seed, self.step, self.worker,
+                                        name), shape)
+
+    def resid_noise(self, name: str, shape) -> torch.Tensor:
+        """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``'s residual
+        encode: the stream salted with ``RESID_SALT``.
+
+        The shape is that of the residual in the reference's layout (NHWC
+        for a convolution's input).
+        """
+        seed = layer_seed(self.seed, self.step, self.worker, name)
+        return self._uniform(_splitmix64(seed ^ RESID_SALT) >> 1, shape)

@@ -1,14 +1,18 @@
-"""Tile-skipping int8 matrix product: the wrapper of
-``csrc/bsp_matmul_int8.cu`` and its plain version.
+"""Tile-skipping matrix products: the wrappers of
+``csrc/bsp_matmul_int8.cu`` and ``csrc/bsp_matmul_dequant.cu`` and their
+plain versions.
 
-Counterpart of ``repro.kernels.bsp_matmul.bsp_matmul_int8``:
+Counterparts of ``repro.kernels.bsp_matmul``:
 
-    C = (op(A) . op(B) over the K-tiles where mask != 0) * scale
+    bsp_matmul_int8:  C = (op(A) . op(B) over the K-tiles where mask != 0)
+                          * scale, A and B int8, exact int32 accumulation
+    bsp_matmul:       C = (f32(op(k)) . B over the K-tiles where mask != 0)
+                          * delta, k int8 NSD indices, B f32, f32
+                          accumulation (the ``int8_operands=False`` path)
 
-with A, B int8, exact int32 accumulation and f32 out, on 128 x 128 tiles.
-``trans_a`` / ``trans_b`` say that an operand is stored transposed, so the
-weight-gradient product k^T . x_q reads k in place; ``mask`` is always the
-tile mask of A as stored.
+with f32 out, on 128 x 128 tiles. ``trans_a`` / ``trans_b`` say that an
+operand is stored transposed, so the weight-gradient product k^T . x reads
+k in place; ``mask`` is always the tile mask of A as stored.
 """
 from __future__ import annotations
 
@@ -19,20 +23,18 @@ from repro_torch.kernels import build
 TILE = 128
 
 
-def _check(a, b, mask, trans_a, trans_b):
+def _check(a, b, mask, trans_a, trans_b, name="bsp_matmul_int8"):
     if a.dim() != 2 or b.dim() != 2:
-        raise ValueError("bsp_matmul_int8: operands must be 2-D")
+        raise ValueError(f"{name}: operands must be 2-D")
     M, K = a.shape[::-1] if trans_a else a.shape
     K2, N = b.shape[::-1] if trans_b else b.shape
     if K != K2:
-        raise ValueError(f"bsp_matmul_int8: contraction {K} != {K2}")
+        raise ValueError(f"{name}: contraction {K} != {K2}")
     if M % TILE or N % TILE or K % TILE:
-        raise ValueError(f"bsp_matmul_int8: {(M, K, N)} not multiples of "
-                         f"{TILE}")
+        raise ValueError(f"{name}: {(M, K, N)} not multiples of {TILE}")
     want = (K // TILE, M // TILE) if trans_a else (M // TILE, K // TILE)
     if tuple(mask.shape) != want:
-        raise ValueError(f"bsp_matmul_int8: mask {tuple(mask.shape)} != "
-                         f"{want}")
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} != {want}")
     return M, N, K
 
 
@@ -83,4 +85,60 @@ def bsp_matmul_int8(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     build.launch("bsp_matmul_int8", "bsp_matmul_int8_launch", build.ptr(a),
                  build.ptr(b), build.ptr(scale), build.ptr(mask), build.ptr(c),
                  M, N, K, int(trans_a), int(trans_b))
+    return c
+
+
+def bsp_matmul_plain(k: torch.Tensor, delta: torch.Tensor, b: torch.Tensor,
+                     mask: torch.Tensor, *, trans_a: bool = False
+                     ) -> torch.Tensor:
+    """The dequant kernel's function in plain torch ops, on any device.
+
+    Mirrors the reference's blocked f32 oracle
+    (``bsp_matmul/ref.py::bsp_matmul_blocked_ref``): one f32 product per
+    K-tile, the occupied tiles' products summed in tile order, then one
+    multiply by delta. (Run TF32 off on the card.)
+    """
+    M, N, K = _check(k, b, mask, trans_a, False, "bsp_matmul")
+    a_op = (k.t() if trans_a else k).to(torch.float32)
+    m_op = (mask.t() if trans_a else mask) != 0
+    bf = b.to(torch.float32)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=k.device)
+    live = m_op.any(0).tolist()  # one host read, not one per tile
+    for kt in range(K // TILE):
+        if not live[kt]:
+            continue
+        rows = m_op[:, kt].repeat_interleave(TILE)
+        sl = slice(kt * TILE, (kt + 1) * TILE)
+        acc = acc + torch.where(rows[:, None], a_op[:, sl] @ bf[sl], 0.0)
+    return acc * delta.to(torch.float32).reshape(())
+
+
+def bsp_matmul(k: torch.Tensor, delta: torch.Tensor, b: torch.Tensor,
+               mask: torch.Tensor, *, trans_a: bool = False) -> torch.Tensor:
+    """op(k) (M, K) int8 x B (K, N) f32 over occupied K-tiles, times
+    ``delta``; M, N, K multiples of 128. Returns (M, N) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise.
+    """
+    M, N, K = _check(k, b, mask, trans_a, False, "bsp_matmul")
+    if k.device.type == "cpu":
+        return bsp_matmul_plain(k, delta, b, mask, trans_a=trans_a)
+    if k.device.type != "cuda":
+        raise ValueError(f"bsp_matmul: no kernel for device {k.device}")
+    if k.dtype != torch.int8:
+        raise TypeError(f"bsp_matmul: k must be int8, got {k.dtype}")
+    if b.dtype != torch.float32:
+        raise TypeError(f"bsp_matmul: b must be float32, got {b.dtype}")
+    if delta.dtype != torch.float32 or delta.numel() != 1:
+        raise TypeError("bsp_matmul: delta must be one float32")
+    if mask.dtype != torch.int32:
+        raise TypeError("bsp_matmul: mask must be int32")
+    build.check_cuda_operands("bsp_matmul", k, b)
+    build.check_cuda_operands("bsp_matmul", k, delta, mask, align=4)
+    c = torch.empty((M, N), dtype=torch.float32, device=k.device)
+    build.check_cuda_operands("bsp_matmul", c)
+    build.launch("bsp_matmul_dequant", "bsp_matmul_dequant_launch",
+                 build.ptr(k), build.ptr(delta), build.ptr(b), build.ptr(mask),
+                 build.ptr(c), M, N, K, int(trans_a))
     return c

@@ -33,13 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches per wrapper since the last reset_launches(). A wrapper adds
 # one exactly where its kernel was launched, never on the CPU path.
-LAUNCHES = {"nsd_quant": 0, "bitmap_pack": 0, "bsp_matmul_int8": 0}
+LAUNCHES = {"nsd_quant": 0, "bitmap_pack": 0, "bsp_matmul_int8": 0,
+            "bitmap_unpack": 0, "levels_compact": 0, "levels_expand": 0,
+            "bsp_matmul_dequant": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "nsd_quant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bitmap_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bsp_matmul_int8_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bitmap_unpack_launch": (_P, _P, _I, _P),
+    "levels_compact_launch": (_P, _P, _P, _I, _P),
+    "levels_expand_launch": (_P, _P, _P, _I, _P),
+    "bsp_matmul_dequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 _lib = None
 

@@ -1,6 +1,6 @@
-// Occupancy-bitmap pack for Hopper (sm_90a).
+// Occupancy-bitmap pack and unpack for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/pack/pack.py::_pack_kernel, called by
+// Pack replaces: src/repro/kernels/pack/pack.py::_pack_kernel, called by
 // bitmap_pack_blocked, and fuses the tile reduction that the reference does
 // afterwards in jnp (src/repro/quant/wire.py::tile_nnz_from_bitmap and
 // tile_mask_from_bitmap). From int8 k (M, N) it writes
@@ -16,6 +16,13 @@
 // block owns one tile, so there are no atomics and the result is
 // deterministic. (The reference's transposed tiles and sublane rolls exist
 // only to get past Mosaic and are not carried over.)
+//
+// Unpack replaces: src/repro/kernels/pack/pack.py::_unpack_kernel, called by
+// bitmap_unpack_blocked: bitmap (M, N/8) uint8 -> mask (M, N) int8 0/1, bit
+// j of byte b giving element 8b + j. Bound on the H100: memory (1/8 byte
+// read, 1 byte written per element). Elementwise: one thread per bitmap
+// byte, whose 8 mask bytes leave in one 8-byte store; neighbouring threads
+// read neighbouring bytes and write neighbouring 8-byte words.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -60,6 +67,20 @@ bitmap_pack_kernel(const int8_t* __restrict__ k, uint32_t* __restrict__ words,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+bitmap_unpack_kernel(const uint8_t* __restrict__ bitmap, uint2* __restrict__ mask,
+                     int nbytes) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nbytes) return;
+  const uint32_t b = bitmap[i];
+  // byte j of the output word pair is bit j of b
+  const uint32_t lo = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 |
+                      ((b >> 3) & 1u) << 24;
+  const uint32_t hi = ((b >> 4) & 1u) | ((b >> 5) & 1u) << 8 | ((b >> 6) & 1u) << 16 |
+                      ((b >> 7) & 1u) << 24;
+  mask[i] = make_uint2(lo, hi);
+}
+
 }  // namespace
 
 // k: (M, N) int8; bitmap: (M, N/8) uint8 written as 32-bit words (4-byte
@@ -71,5 +92,15 @@ extern "C" int bitmap_pack_launch(const int8_t* k, uint8_t* bitmap,
   const dim3 grid(N / bn, M / bm);
   bitmap_pack_kernel<<<grid, kThreads, 0, stream>>>(
       k, reinterpret_cast<uint32_t*>(bitmap), nnz, mask, N, bm, bn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bitmap: nbytes uint8; mask: 8 * nbytes int8 (8-byte aligned, checked by
+// the Python wrapper).
+extern "C" int bitmap_unpack_launch(const uint8_t* bitmap, int8_t* mask,
+                                    int nbytes, cudaStream_t stream) {
+  const int blocks = (nbytes + kThreads - 1) / kThreads;
+  bitmap_unpack_kernel<<<blocks, kThreads, 0, stream>>>(
+      bitmap, reinterpret_cast<uint2*>(mask), nbytes);
   return static_cast<int>(cudaGetLastError());
 }

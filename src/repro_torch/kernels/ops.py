@@ -1,4 +1,4 @@
-"""The dithered backward of one layer, chained through the three kernels.
+"""The dithered backward of one layer, chained through the kernels.
 
 Counterpart of ``repro.kernels.ops``. For y = x @ w with cotangent g:
 
@@ -8,6 +8,15 @@ Counterpart of ``repro.kernels.ops``. For y = x @ w with cotangent g:
     bsp kernel x2     ->  dx = (k . w_q^T) * delta * s_w      (mask)
                           dW = (k^T . x_q)^T * delta * s_x    (mask, A read
                                                                transposed)
+
+with x and w absmax-quantized to int8 (``int8_operands=True``, the default
+and the training path), or, with ``int8_operands=False``, both products on
+the dequant kernel against the f32 operands (the reference's
+``bsp_matmul`` branch; no trainer selects it):
+
+    dequant kernel x2 ->  dx = (k . w^T) * delta          (mask)
+                          dW = (k^T . x)^T * delta        (mask, A read
+                                                           transposed)
 
 Operands are zero-padded to 128-multiples; padded elements quantize to
 k == 0, so padding tiles read 0 in the mask and are skipped. Each wrapper
@@ -88,15 +97,29 @@ def quantized_from_indices(k: torch.Tensor, delta: torch.Tensor
 
 
 def bsp_backward_from_quantized(q: QuantizedGrad, x: torch.Tensor,
-                                w: torch.Tensor, *, need_dx: bool = True
+                                w: torch.Tensor, *, need_dx: bool = True,
+                                int8_operands: bool = True
                                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Both backward products of y = x @ w from a quantized cotangent.
 
     x: (T, K); w: (K, N). Returns (dx (T, K) or None when ``need_dx`` is
-    False, dw (K, N)), with x and w absmax-quantized to int8.
+    False, dw (K, N)), with x and w absmax-quantized to int8, or kept in
+    f32 when ``int8_operands`` is False.
     """
     T, N = q.shape
     K = x.shape[-1]
+    if not int8_operands:
+        dx = None
+        if need_dx:
+            # dx = k . w^T: the f32 operand laid out (N, K), contraction rows
+            dx = bsp_matmul.bsp_matmul(
+                q.k, q.delta, _pad_to(w.t().to(torch.float32), BLOCK, BLOCK),
+                q.mask)[:T, :K].to(x.dtype)
+        # dW^T = k^T . x: k read transposed in place
+        dw_t = bsp_matmul.bsp_matmul(
+            q.k, q.delta, _pad_to(x.reshape(-1, K).to(torch.float32), BLOCK,
+                                  BLOCK), q.mask, trans_a=True)
+        return dx, dw_t[:N, :K].t().to(w.dtype)
     xq = absmax_int8(x.reshape(-1, K))
     dx = None
     if need_dx:
@@ -113,7 +136,9 @@ def bsp_backward_from_quantized(q: QuantizedGrad, x: torch.Tensor,
 
 
 def dithered_backward_matmuls(g: torch.Tensor, x: torch.Tensor,
-                              w: torch.Tensor, u: torch.Tensor, s: float):
+                              w: torch.Tensor, u: torch.Tensor, s: float, *,
+                              int8_operands: bool = True):
     """The kernel-path backward of y = x @ w for cotangent g (T, N), inputs
     x (T, K), w (K, N) and unit noise u (T, N): (dx, dW)."""
-    return bsp_backward_from_quantized(quantize_and_mask(g, u, s), x, w)
+    return bsp_backward_from_quantized(quantize_and_mask(g, u, s), x, w,
+                                       int8_operands=int8_operands)

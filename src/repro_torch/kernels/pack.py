@@ -1,10 +1,16 @@
-"""Occupancy-bitmap pack: the wrapper of ``csrc/pack.cu`` and its plain
-version.
+"""Occupancy-bitmap pack and unpack: the wrappers of ``csrc/pack.cu`` and
+their plain versions.
 
-Counterpart of ``repro.kernels.pack`` (``bitmap_pack_blocked``) fused with
-the tile reduction of ``repro.quant.wire`` that derives the backward
-matmul's tile mask from the packed bitmap: from int8 k (M, N) one pass
-gives the LSB-first bitmap (M, N/8), the per-tile nnz and the tile mask.
+Counterpart of ``repro.kernels.pack``:
+
+* ``bitmap_pack_blocked``, fused with the tile reduction of
+  ``repro.quant.wire`` that derives the backward matmul's tile mask from
+  the packed bitmap: from int8 k (M, N) one pass gives the LSB-first bitmap
+  (M, N/8), the per-tile nnz and the tile mask;
+* ``bitmap_unpack`` (the reference's ``bitmap_unpack_blocked``): bitmap
+  (M, N/8) -> int8 0/1 mask (M, N), which the NSD wire decode feeds to the
+  levels expand kernel. Elementwise, so any M works (the reference's tile
+  multiples come from its blocked grid).
 """
 from __future__ import annotations
 
@@ -59,3 +65,41 @@ def bitmap_pack_blocked(k: torch.Tensor, *, bm: int = 128, bn: int = 128):
                  build.ptr(bitmap), build.ptr(nnz), build.ptr(mask), M, N,
                  bm, bn)
     return bitmap, nnz, mask
+
+
+def _check_unpack(bitmap):
+    if bitmap.dim() != 2:
+        raise ValueError(f"bitmap_unpack: bitmap must be 2-D, got "
+                         f"{tuple(bitmap.shape)}")
+
+
+def bitmap_unpack_plain(bitmap: torch.Tensor) -> torch.Tensor:
+    """The unpack kernel's function in plain torch ops, on any device."""
+    _check_unpack(bitmap)
+    return wire.unpack_bitmap(bitmap).to(torch.int8)
+
+
+def bitmap_unpack(bitmap: torch.Tensor) -> torch.Tensor:
+    """bitmap: (M, N // 8) uint8 -> int8 0/1 occupancy mask (M, N).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise.
+    """
+    _check_unpack(bitmap)
+    if bitmap.device.type == "cpu":
+        return bitmap_unpack_plain(bitmap)
+    if bitmap.device.type != "cuda":
+        raise ValueError(f"bitmap_unpack: no kernel for device {bitmap.device}")
+    if bitmap.dtype != torch.uint8:
+        raise TypeError(f"bitmap_unpack: bitmap must be uint8, got "
+                        f"{bitmap.dtype}")
+    if bitmap.numel() >= 2**31:
+        raise ValueError("bitmap_unpack: more than 2^31 - 1 bitmap bytes")
+    build.check_cuda_operands("bitmap_unpack", bitmap, align=1)
+    M, NB = bitmap.shape
+    mask = torch.empty((M, NB * 8), dtype=torch.int8, device=bitmap.device)
+    build.check_cuda_operands("bitmap_unpack", mask, align=8)
+    if bitmap.numel():
+        build.launch("bitmap_unpack", "bitmap_unpack_launch", build.ptr(bitmap),
+                     build.ptr(mask), bitmap.numel())
+    return mask

@@ -1,17 +1,85 @@
-"""Occupancy-bitmap helpers of the NSD wire format (plain torch).
+"""The NSD wire format: occupancy bitmaps and the chunked ``PackedNSD``.
 
-Counterpart of the bitmap half of ``repro.quant.wire``: one occupancy bit
-per element, LSB first (bit j of byte b is element 8b + j of the row), and
-the per-tile counts and mask derived from the packed bytes. These are the
-plain versions the CUDA pack kernel (``repro_torch.kernels.pack``) is held
-against; the chunked ``PackedNSD`` wire container is not ported yet.
+Counterpart of ``repro.quant.wire``. An NSD-quantized tensor travels and
+rests as
+
+    header        4 bytes   (element count)
+    deltas        4 bytes per chunk   (f32 step size, the per-tensor Delta)
+    bitmap        chunk/8 bytes per chunk  (1 bit per element: non-zero?)
+    levels        1 byte per NON-ZERO element (int8 k, compacted in order)
+
+so wire bytes = 4 + n_chunks * (4 + chunk/8) + nnz. The bitmap is LSB first
+(bit j of byte b is element 8b + j of the chunk). ``levels`` keeps capacity
+for the all-non-zero case, with the live prefix length in ``nnz``.
+
+Two routes compute the same bytes:
+
+* ``backend="plain"``: the reference's jnp path, a cumsum over the whole
+  flat tensor (:func:`_compact` / :func:`_expand`);
+* ``backend="kernel"`` (the default): chunk-local, through the port's
+  kernels. The encode runs the NSD and pack kernels on the (n_chunks, 256)
+  view, whose pack bitmap *is* the wire bitmap, then the levels compact
+  kernel per chunk; the decode runs the bitmap-unpack and levels expand
+  kernels. The assembly between the chunks (a cumsum over the per-chunk
+  counts, one scatter, one gather) stays in plain torch ops, as the
+  reference keeps it in XLA ops outside its ``pallas_call``. Each kernel
+  wrapper takes its plain version for CPU tensors.
+
+Both routes are bit-exact against each other and against the reference's
+bytes for the same (x, noise, Delta).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import nsd
+from repro_torch.quant.registry import as_dtype, dtype_name
+
+DEFAULT_CHUNK = 256  # elements per chunk; must be a multiple of 8
+HEADER_BYTES = 4
+BACKENDS = ("kernel", "plain")
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
+_ROWS = 128  # the NSD and pack kernels' tile height over the chunk view
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedNSD:
+    """An NSD-quantized tensor in wire layout; the tensors stay on their
+    device, ``nnz`` and :meth:`wire_bytes` are 0-d int32 tensors (no host
+    sync)."""
+
+    levels: torch.Tensor  # int8 (n_chunks * chunk,): non-zero k compacted
+    #                       to the front in flat row-major order, zero padded
+    bitmap: torch.Tensor  # uint8 (n_chunks, chunk // 8): LSB-first occupancy
+    deltas: torch.Tensor  # f32 (n_chunks,): step size per chunk
+    nnz: torch.Tensor  # int32 0-d: live prefix length of ``levels``
+    shape: Tuple[int, ...] = ()
+    dtype: str = "float32"
+    chunk: int = DEFAULT_CHUNK
+
+    @property
+    def n_chunks(self) -> int:
+        return self.bitmap.shape[0]
+
+    def wire_bytes(self) -> torch.Tensor:
+        """Bytes this tensor occupies on the wire (0-d int32)."""
+        fixed = HEADER_BYTES + self.n_chunks * (4 + self.chunk // 8)
+        return self.nnz + fixed
+
+    def dense_bytes(self) -> int:
+        """Bytes of the dense f32 tensor this replaces."""
+        n = 1
+        for d in self.shape:
+            n *= int(d)
+        return n * 4
+
+
+def _padded_size(n: int, chunk: int) -> int:
+    return ((n + chunk - 1) // chunk) * chunk
 
 
 def pack_bitmap(bits: torch.Tensor) -> torch.Tensor:
@@ -64,3 +132,161 @@ def tile_mask_from_bitmap(bitmap: torch.Tensor, bm: int = 128, bk: int = 128
     1 where any byte of the tile is non-zero; padded tiles read 0."""
     tiles = _tile_sums((bitmap != 0).to(torch.int32), bm, bk)
     return (tiles > 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# levels compaction: the plain global route and the chunk-local kernel route
+# ---------------------------------------------------------------------------
+
+def _compact(k_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Move the non-zeros of an int8 vector to the front, in order."""
+    n = k_flat.shape[0]
+    nz = k_flat != 0
+    pos = torch.cumsum(nz.to(torch.int32), 0) - 1
+    tgt = torch.where(nz, pos, n).to(torch.int64)  # zeros -> a dropped slot
+    levels = torch.zeros(n + 1, dtype=torch.int8, device=k_flat.device)
+    levels.scatter_(0, tgt, k_flat.to(torch.int8))
+    return levels[:n], nz.sum(dtype=torch.int32)
+
+
+def _expand(levels: torch.Tensor, mask_flat: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_compact` given the occupancy mask."""
+    pos = torch.cumsum(mask_flat.to(torch.int32), 0) - 1
+    got = levels[pos.clamp(min=0).to(torch.int64)]
+    return torch.where(mask_flat, got, torch.zeros_like(got))
+
+
+def _chunk_starts(counts: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+
+def _compact_chunks(k2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_compact` of ``k2d.reshape(-1)`` through the chunk-local
+    compact kernel and one scatter over the per-chunk counts."""
+    from repro_torch.kernels import levels as levels_k
+
+    n_chunks, chunk = k2d.shape
+    n = n_chunks * chunk
+    local, counts = levels_k.levels_compact(k2d)
+    i = torch.arange(chunk, dtype=torch.int32, device=k2d.device)
+    live = i[None, :] < counts[:, None]
+    tgt = torch.where(live, _chunk_starts(counts)[:, None] + i[None, :], n)
+    levels = torch.zeros(n + 1, dtype=torch.int8, device=k2d.device)
+    # every dropped slot receives a 0 (the kernel zero-fills past the count)
+    levels.scatter_(0, tgt.reshape(-1).to(torch.int64), local.reshape(-1))
+    return levels[:n], counts.sum(dtype=torch.int32)
+
+
+def _expand_chunks(levels: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
+    """:func:`_expand` through the bitmap-unpack kernel, one gather of each
+    chunk's levels over the per-chunk counts, and the expand kernel.
+    Returns int8 (n_chunks, chunk)."""
+    from repro_torch.kernels import levels as levels_k
+    from repro_torch.kernels import pack as pack_k
+
+    n = levels.shape[0]
+    mask = pack_k.bitmap_unpack(bitmap)
+    chunk = mask.shape[1]
+    counts = mask.sum(1, dtype=torch.int32)
+    i = torch.arange(chunk, dtype=torch.int32, device=levels.device)
+    idx = (_chunk_starts(counts)[:, None] + i[None, :]).clamp(max=n - 1)
+    got = levels[idx.to(torch.int64)]
+    local = torch.where(i[None, :] < counts[:, None], got, torch.zeros_like(got))
+    return levels_k.levels_expand(local, mask)
+
+
+def _check_backend(backend: str, chunk: int) -> bool:
+    """True for the kernel route, which needs the kernels' 256 chunk."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if chunk % 8:
+        raise ValueError(f"chunk {chunk} is not a multiple of 8")
+    if backend == "kernel" and chunk != DEFAULT_CHUNK:
+        raise ValueError(f"the kernel route needs chunk {DEFAULT_CHUNK}, "
+                         f"got {chunk}")
+    return backend == "kernel"
+
+
+def _chunk_view(flat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(n,) -> zero-padded (n_chunks, chunk)."""
+    pad = _padded_size(flat.shape[0], chunk) - flat.shape[0]
+    return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, chunk)
+
+
+def _pack_view(k2d: torch.Tensor) -> torch.Tensor:
+    """The wire bitmap of (n_chunks, 256) int8 k through the pack kernel,
+    its rows zero-padded to the kernel's 128-row tile and sliced back."""
+    from repro_torch.kernels import pack as pack_k
+
+    kp = _pad2d(k2d, _ROWS, 1).contiguous()
+    bitmap, _, _ = pack_k.bitmap_pack_blocked(kp)
+    return bitmap[:k2d.shape[0]]
+
+
+def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype,
+                 chunk: int = DEFAULT_CHUNK, *, backend: str = "kernel"
+                 ) -> PackedNSD:
+    """Pack precomputed NSD indices (int8/int32 k) and a scalar Delta."""
+    kernel = _check_backend(backend, chunk)
+    k2d = _chunk_view(k.to(torch.int8).reshape(-1), chunk)
+    if kernel:
+        bitmap = _pack_view(k2d)
+        levels, nnz = _compact_chunks(k2d)
+    else:
+        bitmap = pack_bitmap(k2d)
+        levels, nnz = _compact(k2d.reshape(-1))
+    deltas = delta.to(torch.float32).reshape(1).repeat(k2d.shape[0])
+    return PackedNSD(levels=levels, bitmap=bitmap, deltas=deltas, nnz=nnz,
+                     shape=tuple(int(d) for d in shape),
+                     dtype=dtype_name(dtype), chunk=chunk)
+
+
+def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float,
+             chunk: int = DEFAULT_CHUNK, *, backend: str = "kernel",
+             delta: Optional[torch.Tensor] = None) -> PackedNSD:
+    """NSD-quantize ``x`` with unit noise ``u`` (x's shape) and lay it out
+    in wire format: Delta = s * std(x) (population std, f32) unless
+    ``delta`` is given, k = clip(floor((x + u * Delta) / Delta + 1/2), +-127)
+    over the flat (row-major) order of ``x``.
+
+    The kernel route quantizes the (n_chunks, 256) view with the NSD kernel
+    (zero x and zero noise in the padding, so padded k is 0) and takes the
+    wire bitmap from the pack kernel on the same view.
+    """
+    from repro_torch.kernels import nsd_quant
+
+    if u.shape != x.shape:
+        raise ValueError(f"pack_nsd: noise {tuple(u.shape)} is not the "
+                         f"shape of x {tuple(x.shape)}")
+    if delta is None:
+        delta = nsd.compute_delta(x, s)
+    delta = delta.to(torch.float32).reshape(())
+    if not _check_backend(backend, chunk):
+        return pack_indices(nsd.nsd_indices(x, u, delta), delta, x.shape,
+                            x.dtype, chunk, backend=backend)
+    x2d = _chunk_view(x.to(torch.float32).reshape(-1), chunk)
+    noise2d = _chunk_view(nsd.dither_noise(u, delta).reshape(-1), chunk)
+    k2d, _ = nsd_quant.nsd_quantize_blocked(
+        _pad2d(x2d, _ROWS, 1).contiguous(),
+        _pad2d(noise2d, _ROWS, 1).contiguous(), delta)
+    k2d = k2d[:x2d.shape[0]]
+    return pack_indices(k2d, delta, x.shape, x.dtype, chunk, backend=backend)
+
+
+def unpack_indices(p: PackedNSD, *, backend: str = "kernel") -> torch.Tensor:
+    """The int8 k of a packed tensor, (n_chunks * chunk,) flat, padding
+    included."""
+    if _check_backend(backend, p.chunk):
+        return _expand_chunks(p.levels, p.bitmap).reshape(-1)
+    return _expand(p.levels, unpack_bitmap(p.bitmap).reshape(-1))
+
+
+def unpack_nsd(p: PackedNSD, *, backend: str = "kernel") -> torch.Tensor:
+    """Reconstruct the dequantized tensor from wire layout alone."""
+    k = unpack_indices(p, backend=backend)
+    vals = (k.to(torch.float32).reshape(p.n_chunks, p.chunk)
+            * p.deltas[:, None]).reshape(-1)
+    n = 1
+    for d in p.shape:
+        n *= int(d)
+    return vals[:n].reshape(p.shape).to(as_dtype(p.dtype))

@@ -6,9 +6,12 @@ steps); one untimed warm-up step (step 0), then steps 1..steps-1 timed on
 the host clock around work that ends in a device synchronise.
 
     python -m repro_torch.train.classifier --model vgg11-cifar \\
-        --variant kernel --steps 5 --batch 128
+        --variant kernel --steps 5 --batch 128 --memory-program default=nsd
 
 runs on CUDA (``--device cpu`` for the CPU) and prints one JSON line.
+``--memory-program`` (the grammar of ``repro_torch.memory.policy``) picks
+each dithered layer's residual codec or remat, as ``launch/train.py``'s flag
+of that name does in the reference.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import argparse
 import json
 import math
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -24,6 +27,7 @@ from repro_torch.configs.paper_models import MODELS
 from repro_torch.core.policy import VARIANTS, DitherCtx, DitherPolicy
 from repro_torch.data.synthetic import ClassifConfig, classification_batch
 from repro_torch.device import resolve_device
+from repro_torch.memory.policy import MemoryPolicy, as_memory_policy
 from repro_torch.models.cnn import CNN, CNNConfig, accuracy, loss_fn
 from repro_torch.obs import metrics
 from repro_torch.optim.optimizers import OptConfig, apply_updates, init_opt_state
@@ -37,13 +41,18 @@ def _sync(device: torch.device) -> None:
 def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
                      steps: int = 60, batch: int = 64, lr: float = 0.05,
                      seed: int = 0, noise: float = 0.5,
+                     memory: Union[None, str, MemoryPolicy] = None,
                      device: Optional[torch.device] = None
                      ) -> Dict[str, float]:
     """Train ``model`` (a config from ``repro_torch.configs``) under
     ``policy`` (None = plain backprop) and return acc (%), final_loss,
     ms_per_step and, when the policy collects stats, sparsity (%) and
-    max_bits over every dithered layer and step."""
+    max_bits over every dithered layer and step. ``memory`` (a
+    ``MemoryPolicy`` or its spec string) selects each dithered layer's
+    residual codec or remat; with stats on, the result then also carries
+    ``residual_compression``, dense over measured residual bytes."""
     dev = resolve_device(device)
+    memory = as_memory_policy(memory)
     # full f32 on the card: cuDNN would run f32 convolutions in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -61,7 +70,8 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
 
     def step(i: int) -> torch.Tensor:
         b = classification_batch(dcfg, i, batch, device=dev)
-        ctx = (DitherCtx(policy, seed=seed, step=state["step"], device=dev)
+        ctx = (DitherCtx(policy, seed=seed, step=state["step"], device=dev,
+                         memory=memory)
                if policy is not None and policy.enabled else None)
         for p in params.values():
             p.grad = None
@@ -86,6 +96,8 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
     if collect:
         out["sparsity"] = metrics.overall_sparsity() * 100
         out["max_bits"] = metrics.overall_max_bits()
+        if memory is not None and metrics.memory_tags():
+            out["residual_compression"] = metrics.overall_residual_compression()
     return out
 
 
@@ -99,17 +111,22 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--noise", type=float, default=0.5)
+    ap.add_argument("--memory-program", default="",
+                    help="per-layer residual modes, e.g. 'default=nsd;rule "
+                         "fc2:fp32' (default: dense fp32 residuals)")
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is none)")
     args = ap.parse_args(argv)
     policy = DitherPolicy(variant=args.variant, s=args.s, collect_stats=True)
     res = train_classifier(MODELS[args.model](), policy, steps=args.steps,
                            batch=args.batch, lr=args.lr, seed=args.seed,
-                           noise=args.noise, device=args.device)
+                           noise=args.noise, memory=args.memory_program,
+                           device=args.device)
     dev = resolve_device(args.device)
     res["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu")
-    print(json.dumps({"model": args.model, "variant": args.variant, **res}))
+    print(json.dumps({"model": args.model, "variant": args.variant,
+                      "memory_program": args.memory_program, **res}))
 
 
 if __name__ == "__main__":

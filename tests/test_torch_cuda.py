@@ -12,9 +12,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import math  # noqa: E402
+
+from repro_torch import quant  # noqa: E402
 from repro_torch.core.policy import DitherCtx, DitherPolicy  # noqa: E402
 from repro_torch.core import dithered  # noqa: E402
-from repro_torch.kernels import build, bsp_matmul, nsd_quant, pack  # noqa: E402
+from repro_torch.kernels import build, bsp_matmul, levels, nsd_quant, pack  # noqa: E402
+from repro_torch.memory.policy import MemoryPolicy  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +27,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in f32
     return torch.device("cuda")
 
 
@@ -84,6 +89,122 @@ def test_dense_kernel_backward_launches_each_kernel(cuda):
     build.reset_launches()
     dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"nsd_quant": 1, "bitmap_pack": 1,
+    assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0),
+                              "nsd_quant": 1, "bitmap_pack": 1,
                               "bsp_matmul_int8": 2}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+
+
+def _levels_input(C, density, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    vals = torch.randint(1, 128, (C, 256), device=cuda, generator=g)
+    sign = torch.randint(0, 2, (C, 256), device=cuda, generator=g) * 2 - 1
+    keep = torch.rand((C, 256), device=cuda, generator=g) < density
+    return torch.where(keep, vals * sign, 0).to(torch.int8)
+
+
+@pytest.mark.parametrize("C", [1, 7, 1000, 8192])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+def test_levels_kernels_match_plain(cuda, C, density):
+    k = _levels_input(C, density, cuda, C)
+    before = dict(build.LAUNCHES)
+    lv, cnt = levels.levels_compact(k)
+    assert build.LAUNCHES["levels_compact"] == before["levels_compact"] + 1
+    want_lv, want_cnt = levels.levels_compact_plain(k)
+    assert torch.equal(lv, want_lv) and torch.equal(cnt, want_cnt)
+    mask = (k != 0).to(torch.int8)
+    out = levels.levels_expand(lv, mask)
+    assert build.LAUNCHES["levels_expand"] == before["levels_expand"] + 1
+    assert torch.equal(out, levels.levels_expand_plain(lv, mask))
+    assert torch.equal(out, k)
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (1000, 32), (256, 16)])
+def test_unpack_kernel_matches_plain(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    bitmap = torch.randint(0, 256, shape, device=cuda, generator=g,
+                           dtype=torch.uint8)
+    got = pack.bitmap_unpack(bitmap)
+    assert torch.equal(got, pack.bitmap_unpack_plain(bitmap))
+    k = (torch.randn(256, 128, device=cuda) * 2).round().clamp(-127, 127).to(torch.int8)
+    bm, _, _ = pack.bitmap_pack_blocked(k)
+    assert torch.equal(pack.bitmap_unpack(bm), (k != 0).to(torch.int8))
+
+
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("kind", ["full", "random", "empty"])
+def test_dequant_kernel_within_band(cuda, trans_a, kind):
+    """Summation order differs from the plain version's: relative L2 within
+    8 sqrt(K) 2^-24 (the rounding of a K-term f32 sum of random-sign terms
+    grows as sqrt(K) u relative to the result); an empty mask gives exact
+    zeros."""
+    M, K, N = 256, 2048, 384
+    g = torch.Generator(device=cuda).manual_seed(8)
+    k = torch.randint(-6, 7, (K, M) if trans_a else (M, K), device=cuda,
+                      generator=g, dtype=torch.int8)
+    b = torch.randn(K, N, device=cuda, generator=g)
+    shape = (K // 128, M // 128) if trans_a else (M // 128, K // 128)
+    mask = {"full": torch.ones(shape, dtype=torch.int32, device=cuda),
+            "empty": torch.zeros(shape, dtype=torch.int32, device=cuda),
+            "random": (torch.rand(shape, device=cuda, generator=g) < 0.5
+                       ).to(torch.int32)}[kind]
+    delta = torch.tensor(3e-3, device=cuda)
+    before = build.LAUNCHES["bsp_matmul_dequant"]
+    got = bsp_matmul.bsp_matmul(k, delta, b, mask, trans_a=trans_a)
+    assert build.LAUNCHES["bsp_matmul_dequant"] == before + 1
+    want = bsp_matmul.bsp_matmul_plain(k, delta, b, mask, trans_a=trans_a)
+    if kind == "empty":
+        assert not got.any()
+        return
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 8 * math.sqrt(K) * 2.0 ** -24
+
+
+def test_new_wrappers_reject_unaligned_or_strided_cuda_operands(cuda):
+    k = torch.zeros(2 * 256 + 1, dtype=torch.int8, device=cuda)[1:].reshape(2, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        levels.levels_compact(k)
+    ok = torch.zeros(2, 256, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        levels.levels_expand(ok, torch.zeros(256, 2, dtype=torch.int8, device=cuda).t())
+    with pytest.raises(TypeError):
+        levels.levels_expand(ok, ok.to(torch.int32))
+    with pytest.raises(TypeError):
+        pack.bitmap_unpack(ok)
+    b = torch.zeros(128 * 128 + 1, device=cuda)[1:].reshape(128, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        bsp_matmul.bsp_matmul(torch.zeros(128, 128, dtype=torch.int8, device=cuda),
+                              torch.ones((), device=cuda), b,
+                              torch.ones(1, 1, dtype=torch.int32, device=cuda))
+
+
+def test_nsd_codec_kernel_route_matches_plain_route(cuda):
+    """The wire container through the kernels (NSD, pack, compact; unpack,
+    expand) is byte-identical to the plain global route on the card."""
+    x = torch.relu(_rand((3, 17, 17, 40), cuda, 9))
+    u = torch.rand(x.shape, device=cuda) - 0.5
+    build.reset_launches()
+    p = quant.wire.pack_nsd(x, u, 1.0)
+    assert (build.LAUNCHES["nsd_quant"], build.LAUNCHES["bitmap_pack"],
+            build.LAUNCHES["levels_compact"]) == (1, 1, 1)
+    want = quant.wire.pack_nsd(x, u, 1.0, backend="plain")
+    for name in ("levels", "bitmap", "deltas", "nnz"):
+        assert torch.equal(getattr(p, name), getattr(want, name)), name
+    out = quant.wire.unpack_nsd(p)
+    assert (build.LAUNCHES["bitmap_unpack"], build.LAUNCHES["levels_expand"]) == (1, 1)
+    assert torch.equal(out, quant.wire.unpack_nsd(want, backend="plain"))
+
+
+def test_dense_nsd_residual_launches_each_kernel(cuda):
+    x = _rand((100, 200), cuda, 10).requires_grad_()
+    w = (_rand((200, 72), cuda, 11) * 0.1).requires_grad_()
+    ctx = DitherCtx(DitherPolicy(variant="kernel"), device=cuda,
+                    memory=MemoryPolicy(default="nsd"))
+    build.reset_launches()
+    dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {"nsd_quant": 2, "bitmap_pack": 2,
+                              "bsp_matmul_int8": 2, "bitmap_unpack": 1,
+                              "levels_compact": 1, "levels_expand": 1,
+                              "bsp_matmul_dequant": 0}
+    assert torch.isfinite(w.grad).all()
