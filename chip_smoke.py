@@ -38,13 +38,16 @@ Phases (any failure exits non-zero and prints no result):
      int8_operands=False)`` on every layer's captured (g, x, w, u) of one
      step, held to its plain versions and to the paper variant's f32
      products within the dequant band, with its launches counted;
-  5. capture every kernel input of one step, hold each call against its
-     plain version again, and time kernel, plain version and the library
+  5. capture every kernel input of one step (for the NSD and pack kernels
+     their cotangent calls of the fp32 step and, apart, their calls in the
+     nsd step's residual encode), hold each call against its plain version
+     again, and time kernel, plain version and the library
      yardstick with CUDA events, beside the least time the card could take
      (bytes over 3.35 TB/s, or operations over the peak rate); then break
      one step's device time down with torch.profiler, for fp32 and for nsd
      residuals, and print one step's peak device memory for each;
-  6. print one JSON line naming the seven kernels;
+  6. print one JSON line naming the seven kernels (the NSD and pack rows
+     carry their residual-encode figures under ``nsd_residual_encode``);
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -479,9 +482,9 @@ def main() -> int:
     check(len(captured) == 11, f"captured {len(captured)} layers")
     calls = {k: [] for k in KERNELS}
 
-    def recorder(kname, fn):
+    def recorder(kname, fn, store=calls):
         def rec(*args, **kw):
-            calls[kname].append(([a.clone() if torch.is_tensor(a) else a
+            store[kname].append(([a.clone() if torch.is_tensor(a) else a
                                   for a in args], dict(kw)))
             return fn(*args, **kw)
         return rec
@@ -523,13 +526,30 @@ def main() -> int:
     # -- phase 5 ----------------------------------------------------------
     old = ("nsd_quant", "bitmap_pack", "bsp_matmul_int8")
     resid = ("levels_compact", "bitmap_unpack", "levels_expand")
+    # the NSD and pack calls of the nsd step's residual encode, on the
+    # (n_chunks, 256) views: the cotangents' calls are those of ``old``
+    encode_calls = {"nsd_quant": [], "bitmap_pack": []}
+    real_pack_nsd = wire.pack_nsd
+
+    def recording_pack_nsd(*a, **kw):
+        with swapped({k: recorder(k, kernel[k], encode_calls) for k in encode_calls}):
+            return real_pack_nsd(*a, **kw)
+
     with swapped({k: recorder(k, kernel[k]) for k in old}):
         step1()
-    with swapped({k: recorder(k, kernel[k]) for k in resid}):
-        step1(MEMORY)
+    wire.pack_nsd = recording_pack_nsd
+    try:
+        with swapped({k: recorder(k, kernel[k]) for k in resid}):
+            step1(MEMORY)
+    finally:
+        wire.pack_nsd = real_pack_nsd
     for kname, n in list(PER_STEP.items()) + [(k, NSD_PER_STEP[k]) for k in resid] \
             + [("bsp_matmul_dequant", F32_OPERAND_LAUNCHES["bsp_matmul_dequant"])]:
         check(len(calls[kname]) == n, f"captured {len(calls[kname])} {kname} calls")
+    for kname, got in encode_calls.items():
+        want = NSD_PER_STEP[kname] - PER_STEP[kname]
+        check(len(got) == want, f"captured {len(got)} {kname} residual-encode "
+                                f"calls, want {want}")
 
     def time_ms(fn, launches=10, groups=5):
         """Median over groups of (CUDA-event time of back-to-back launches)
@@ -576,12 +596,14 @@ def main() -> int:
         "levels_expand": "masked_scatter of the global levels: expand and its assembly",
         "bsp_matmul_dequant": "torch.matmul on the dense dequantized f32 operands, TF32 off",
     }
-    rows = []
-    for kname in KERNELS:
+
+    def measure(kname, call_list, label=""):
+        """Check each recorded call against the plain version and sum the
+        kernel, plain, library and bound times over the calls."""
         tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
                    route_ms=0.0)
         have_library = kname in libraries
-        for i, (args, kw) in enumerate(calls[kname]):
+        for i, (args, kw) in enumerate(call_list):
             check_call(kname, args, kw, i)
             ms = time_ms(lambda: kernel[kname](*args, **kw))
             pms = time_ms(lambda: plain[kname](*args, **kw), launches=2, groups=3)
@@ -668,31 +690,44 @@ def main() -> int:
             tot["plain_ms"] += pms
             tot["t_bytes"] += t_b
             tot["t_ops"] += t_o
-            log(f"  {kname} {shape}: {ms:.4f} ms (bound {max(t_b, t_o):.4f} ms, "
+            log(f"  {kname}{label} {shape}: {ms:.4f} ms (bound {max(t_b, t_o):.4f} ms, "
                 f"plain {pms:.4f} ms"
                 + (f", with its assembly {route:.4f} ms" if route is not None else "")
                 + (f", library {lib:.4f} ms)" if lib is not None else ")"))
-        path_launches = (launches if kname in PER_STEP else launches_f32
-                         if kname == "bsp_matmul_dequant" else launches_nsd)[kname]
-        rows.append({
-            "name": kname, "route": "cuda", "source": KERNELS[kname][0],
-            "replaces": KERNELS[kname][1], "launches": path_launches,
-            "max_abs_err": max_err[kname], "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"],
-            "bound_ms": max(tot["t_bytes"], tot["t_ops"]),
-            "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
-            "library_ms": tot["library_ms"] if have_library else None,
-        })
-        log(f"  {kname}: {len(calls[kname])} calls, {tot['ms']:.4f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), plain "
+        tot["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
+        tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+        tot["library_ms"] = tot["library_ms"] if have_library else None
+        log(f"  {kname}{label}: {len(call_list)} calls, {tot['ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), plain "
             f"{tot['plain_ms']:.4f} ms"
             + (f", with its assembly {tot['route_ms']:.4f} ms" if tot["route_ms"] else "")
             + (f", library {tot['library_ms']:.4f} ms ({libraries[kname]})"
                if have_library else ", library none"))
+        return tot
+
+    rows = []
+    for kname in KERNELS:
+        tot = measure(kname, calls[kname])
+        path_launches = (launches if kname in PER_STEP else launches_f32
+                         if kname == "bsp_matmul_dequant" else launches_nsd)[kname]
+        row = {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
+               "replaces": KERNELS[kname][1], "launches": path_launches,
+               "max_abs_err": max_err[kname],
+               **{k: tot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+        if kname in encode_calls:
+            # the same kernel's calls in the nsd step's residual encode, with
+            # their launches over phase 4b's run
+            enc = measure(kname, encode_calls[kname], " (nsd residual encode)")
+            row["nsd_residual_encode"] = {
+                "launches": launches_nsd[kname] - launches[kname],
+                **{k: enc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+        rows.append(row)
     torch.cuda.synchronize()
     log(f"phase 5: per-kernel times are sums over the launches of one "
         f"batch-{BATCH} step (the f32-operand backward's 22 products for the "
-        f"dequant kernel); step time kernel path {res['ms_per_step']:.2f} ms, "
+        f"dequant kernel; the NSD and pack rows' cotangent calls of the fp32 "
+        f"step, and their residual-encode calls of the nsd step apart); step time kernel path {res['ms_per_step']:.2f} ms, "
         f"plain versions {res_plain['ms_per_step']:.2f} ms; with nsd residuals "
         f"{res_nsd['ms_per_step']:.2f} ms, plain versions "
         f"{res_nsd_plain['ms_per_step']:.2f} ms ({card})")

@@ -81,7 +81,7 @@ def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
                    dctx: DitherCtx, name: str, conv: bool) -> None:
     """Encode x under the layer's mode and save it with w. An encoded
     container is saved as its tensors (``save_for_backward``), its static
-    fields (shape, dtype, chunk) as attributes."""
+    fields (shape, dtype) as attributes."""
     mode = pol.residual
     if mode in _DENSE_MODES:
         enc = x

@@ -115,18 +115,13 @@ def memory_summary() -> Dict[str, Dict[str, float]]:
     return out
 
 
-def overall_residual_compression(prefix: str = "", *,
-                                 capacity: bool = False) -> float:
-    """dense / measured (or dense / capacity) over every recorded layer x
-    step under a tag prefix."""
-    col = 1 if capacity else 0
+def overall_residual_compression() -> float:
+    """dense / measured bytes over every recorded layer x step."""
     stored = dense = 0.0
     for tag in memory_tags():
-        if not tag.startswith(prefix):
-            continue
         r = memory_rows(tag)
         if len(r):
-            stored += float(r[:, col].sum())
+            stored += float(r[:, 0].sum())
             dense += float(r[:, 2].sum())
     if stored <= 0:
         return float("nan")

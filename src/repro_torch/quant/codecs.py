@@ -168,14 +168,13 @@ class NsdCodec(Codec):
         if noise is None:
             raise ValueError("nsd encode needs a unit noise draw (dithered "
                              "codec)")
-        return wire.pack_nsd(x, noise, spec.param,
-                             spec.chunk or wire.DEFAULT_CHUNK)
+        return wire.pack_nsd(x, noise, spec.param)
 
     def decode(self, spec, enc):
         return wire.unpack_nsd(enc)
 
     def stored_nbytes(self, spec, shape, dtype) -> int:
-        chunk = spec.chunk or wire.DEFAULT_CHUNK
+        chunk = wire.DEFAULT_CHUNK
         padded = ((_nelems(shape) + chunk - 1) // chunk) * chunk
         # levels capacity + bitmap + per-chunk deltas + nnz scalar
         return padded + padded // 8 + 4 * (padded // chunk) + 4

@@ -31,7 +31,7 @@ bytes for the same (x, noise, Delta).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.core import nsd
 from repro_torch.quant.registry import as_dtype, dtype_name
 
-DEFAULT_CHUNK = 256  # elements per chunk; must be a multiple of 8
+DEFAULT_CHUNK = 256  # elements per chunk, the only chunk either route uses
 HEADER_BYTES = 4
 BACKENDS = ("kernel", "plain")
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -59,7 +59,7 @@ class PackedNSD:
     nnz: torch.Tensor  # int32 0-d: live prefix length of ``levels``
     shape: Tuple[int, ...] = ()
     dtype: str = "float32"
-    chunk: int = DEFAULT_CHUNK
+    chunk: ClassVar[int] = DEFAULT_CHUNK
 
     @property
     def n_chunks(self) -> int:
@@ -76,10 +76,6 @@ class PackedNSD:
         for d in self.shape:
             n *= int(d)
         return n * 4
-
-
-def _padded_size(n: int, chunk: int) -> int:
-    return ((n + chunk - 1) // chunk) * chunk
 
 
 def pack_bitmap(bits: torch.Tensor) -> torch.Tensor:
@@ -195,22 +191,17 @@ def _expand_chunks(levels: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
     return levels_k.levels_expand(local, mask)
 
 
-def _check_backend(backend: str, chunk: int) -> bool:
-    """True for the kernel route, which needs the kernels' 256 chunk."""
+def _check_backend(backend: str) -> bool:
+    """True for the kernel route."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
-    if chunk % 8:
-        raise ValueError(f"chunk {chunk} is not a multiple of 8")
-    if backend == "kernel" and chunk != DEFAULT_CHUNK:
-        raise ValueError(f"the kernel route needs chunk {DEFAULT_CHUNK}, "
-                         f"got {chunk}")
     return backend == "kernel"
 
 
-def _chunk_view(flat: torch.Tensor, chunk: int) -> torch.Tensor:
-    """(n,) -> zero-padded (n_chunks, chunk)."""
-    pad = _padded_size(flat.shape[0], chunk) - flat.shape[0]
-    return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, chunk)
+def _chunk_view(flat: torch.Tensor) -> torch.Tensor:
+    """(n,) -> zero-padded (n_chunks, DEFAULT_CHUNK)."""
+    pad = (-flat.shape[0]) % DEFAULT_CHUNK
+    return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, DEFAULT_CHUNK)
 
 
 def _pack_view(k2d: torch.Tensor) -> torch.Tensor:
@@ -223,12 +214,11 @@ def _pack_view(k2d: torch.Tensor) -> torch.Tensor:
     return bitmap[:k2d.shape[0]]
 
 
-def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype,
-                 chunk: int = DEFAULT_CHUNK, *, backend: str = "kernel"
-                 ) -> PackedNSD:
+def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype, *,
+                 backend: str = "kernel") -> PackedNSD:
     """Pack precomputed NSD indices (int8/int32 k) and a scalar Delta."""
-    kernel = _check_backend(backend, chunk)
-    k2d = _chunk_view(k.to(torch.int8).reshape(-1), chunk)
+    kernel = _check_backend(backend)
+    k2d = _chunk_view(k.to(torch.int8).reshape(-1))
     if kernel:
         bitmap = _pack_view(k2d)
         levels, nnz = _compact_chunks(k2d)
@@ -238,11 +228,11 @@ def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype,
     deltas = delta.to(torch.float32).reshape(1).repeat(k2d.shape[0])
     return PackedNSD(levels=levels, bitmap=bitmap, deltas=deltas, nnz=nnz,
                      shape=tuple(int(d) for d in shape),
-                     dtype=dtype_name(dtype), chunk=chunk)
+                     dtype=dtype_name(dtype))
 
 
-def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float,
-             chunk: int = DEFAULT_CHUNK, *, backend: str = "kernel",
+def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float, *,
+             backend: str = "kernel",
              delta: Optional[torch.Tensor] = None) -> PackedNSD:
     """NSD-quantize ``x`` with unit noise ``u`` (x's shape) and lay it out
     in wire format: Delta = s * std(x) (population std, f32) unless
@@ -261,22 +251,22 @@ def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float,
     if delta is None:
         delta = nsd.compute_delta(x, s)
     delta = delta.to(torch.float32).reshape(())
-    if not _check_backend(backend, chunk):
+    if not _check_backend(backend):
         return pack_indices(nsd.nsd_indices(x, u, delta), delta, x.shape,
-                            x.dtype, chunk, backend=backend)
-    x2d = _chunk_view(x.to(torch.float32).reshape(-1), chunk)
-    noise2d = _chunk_view(nsd.dither_noise(u, delta).reshape(-1), chunk)
+                            x.dtype, backend=backend)
+    x2d = _chunk_view(x.to(torch.float32).reshape(-1))
+    noise2d = _chunk_view(nsd.dither_noise(u, delta).reshape(-1))
     k2d, _ = nsd_quant.nsd_quantize_blocked(
         _pad2d(x2d, _ROWS, 1).contiguous(),
         _pad2d(noise2d, _ROWS, 1).contiguous(), delta)
     k2d = k2d[:x2d.shape[0]]
-    return pack_indices(k2d, delta, x.shape, x.dtype, chunk, backend=backend)
+    return pack_indices(k2d, delta, x.shape, x.dtype, backend=backend)
 
 
 def unpack_indices(p: PackedNSD, *, backend: str = "kernel") -> torch.Tensor:
     """The int8 k of a packed tensor, (n_chunks * chunk,) flat, padding
     included."""
-    if _check_backend(backend, p.chunk):
+    if _check_backend(backend):
         return _expand_chunks(p.levels, p.bitmap).reshape(-1)
     return _expand(p.levels, unpack_bitmap(p.bitmap).reshape(-1))
 

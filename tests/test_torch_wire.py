@@ -104,11 +104,11 @@ def test_all_zero_tensor_packs_to_no_levels(backend):
     assert not wire.unpack_nsd(pt, backend=backend).any()
 
 
-def test_kernel_route_rejects_other_chunks():
+def test_unknown_backend_is_refused():
     x = torch.zeros(64)
-    with pytest.raises(ValueError, match="chunk"):
-        wire.pack_nsd(x, x, S, chunk=128)
-    p = wire.pack_nsd(x, x, S, chunk=128, backend="plain")
-    assert p.bitmap.shape == (1, 16)
     with pytest.raises(ValueError, match="backend"):
         wire.pack_nsd(x, x, S, backend="pallas")
+    p = wire.pack_nsd(x, x, S, backend="plain")
+    assert p.bitmap.shape == (1, 32) and p.chunk == wire.DEFAULT_CHUNK
+    with pytest.raises(ValueError, match="backend"):
+        wire.unpack_nsd(p, backend="pallas")
