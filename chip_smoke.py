@@ -41,11 +41,20 @@ Phases (any failure exits non-zero and prints no result):
   5. capture every kernel input of one step (for the NSD and pack kernels
      their cotangent calls of the fp32 step and, apart, their calls in the
      nsd step's residual encode), hold each call against its plain version
-     again, and time kernel, plain version and the library
-     yardstick with CUDA events, beside the least time the card could take
-     (bytes over 3.35 TB/s, or operations over the peak rate); then break
-     one step's device time down with torch.profiler, for fp32 and for nsd
-     residuals, and print one step's peak device memory for each;
+     again (the dequant product also against a second launch of itself,
+     bit for bit), log each matmul call's split-K count, and time kernel,
+     plain version and the library yardstick with CUDA events, beside the
+     least time the card could take (bytes over 3.35 TB/s, or operations
+     over the peak rate of the units that do them); then break one step's
+     device time down with torch.profiler, for fp32 and for nsd residuals
+     and for the f32-operand backward, and print one step's peak device
+     memory for the first two;
+  5a. (before the timing) the split-K edges of both matmuls, with A read
+     transposed as dW reads it: c0's dW shape at batch 128 (128 x 131,072
+     x 128, which must run split), a K-tile count the split count does not
+     divide, a split whose K-tiles are all masked, only the last K-tile
+     occupied, and an all-masked mask (zeros); the int8 product bit-exact,
+     the dequant product within its band and equal over two launches;
   6. print one JSON line naming the seven kernels (the NSD and pack rows
      carry their residual-encode figures under ``nsd_residual_encode``);
   7. print the JSON result line last.
@@ -67,6 +76,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core peak
 BATCH, STEPS, SEED = 128, 5, 0
 PER_STEP = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_int8": 21}
 # memory="default=nsd": each of the 11 layers encodes its input (NSD, pack,
@@ -155,9 +165,11 @@ def profile_step(torch, step_fn, card, label, steps=3):
     log(f"phase 5b ({label}): forward+backward of one batch-{BATCH} step: wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} device kernels launched ({card})")
+    # a matmul's name also matches its split-K reduce kernel, listed after it
     for name in ("nsd_quant_kernel", "bitmap_pack_kernel", "bsp_int8_kernel",
-                 "levels_compact_kernel", "bitmap_unpack_kernel",
-                 "levels_expand_kernel", "bsp_dequant_kernel"):
+                 "bsp_int8_kernel_reduce", "levels_compact_kernel",
+                 "bitmap_unpack_kernel", "levels_expand_kernel",
+                 "bsp_dequant_kernel", "bsp_dequant_kernel_reduce"):
         ms = sum(r[0] for r in rows if name in r[2])
         n = sum(r[1] for r in rows if name in r[2])
         log(f"  port kernel {name}: {ms:.4f} ms device time per step over {n} launches")
@@ -568,6 +580,31 @@ def main() -> int:
             per.append(a.elapsed_time(b) / launches)
         return statistics.median(per)
 
+    def graph_ms(fn, launches=10, groups=5):
+        """Device time per launch without the host's dispatch: ``launches``
+        calls captured in one CUDA graph, whose replays are timed with CUDA
+        events (median over groups)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(groups):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            per.append(a.elapsed_time(b) / launches)
+        return statistics.median(per)
+
     def int_mm_fn(a, b):
         """torch._int_mm on the dense operands, in the layout it accepts."""
         for bb in (b, b.t().contiguous().t()):
@@ -587,6 +624,8 @@ def main() -> int:
             k_st = args[0]
             K = k_st.shape[0] if kw.get("trans_a") else k_st.shape[1]
             banded(kname, got[0], want[0], K, f"path call {i}")
+            check(torch.equal(got[0], kernel[kname](*args, **kw)),
+                  f"{kname} path call {i}: two launches differ")
         else:
             same(kname, got, want, f"path call {i}")
 
@@ -601,13 +640,18 @@ def main() -> int:
         """Check each recorded call against the plain version and sum the
         kernel, plain, library and bound times over the calls."""
         tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
-                   route_ms=0.0)
+                   route_ms=0.0, graph_ms=0.0)
         have_library = kname in libraries
         for i, (args, kw) in enumerate(call_list):
             check_call(kname, args, kw, i)
             ms = time_ms(lambda: kernel[kname](*args, **kw))
             pms = time_ms(lambda: plain[kname](*args, **kw), launches=2, groups=3)
             lib = route = None
+            # the two matmuls: their device time per call, from graph replays
+            gms = (graph_ms(lambda: kernel[kname](*args, **kw))
+                   if kname in ("bsp_matmul_int8", "bsp_matmul_dequant") else None)
+            if gms is not None:
+                tot["graph_ms"] += gms
             if kname == "nsd_quant":
                 M, N = args[0].shape
                 nbytes = M * N * (4 + 4 + 1) + (M // 128) * (N // 128) * 4 + 4
@@ -655,9 +699,11 @@ def main() -> int:
                 k_needed = int(m_op.any(0).sum())
                 nbytes = (occupied * 128 * 128 + k_needed * 128 * N * 4 + M * N * 4
                           + mask.numel() * 4 + 4)
-                nops, rate = 2 * occupied * 128 * 128 * N, FP32_OPS_PER_S
+                # two TF32 products (B_hi, B_lo) per multiply-add
+                nops, rate = 2 * 2 * occupied * 128 * 128 * N, TF32_OPS_PER_S
                 shape = (f"{M}x{K}x{N} {'dW' if ta else 'dx'} "
-                         f"{occupied}/{m_op.numel()} tiles")
+                         f"{occupied}/{m_op.numel()} tiles, split "
+                         f"{bsp_matmul.splits_for(M, N, K, dev)}")
                 a_f = a_op.to(torch.float32) * d
                 lib = time_ms(lambda: torch.matmul(a_f, b_op))
                 del a_f
@@ -675,7 +721,8 @@ def main() -> int:
                           + mask.numel() * 4 + 4)
                 nops, rate = 2 * occupied * 128 * 128 * N, INT8_OPS_PER_S
                 shape = (f"{M}x{K}x{N} {'dW' if ta else 'dx'} "
-                         f"{occupied}/{m_op.numel()} tiles")
+                         f"{occupied}/{m_op.numel()} tiles, split "
+                         f"{bsp_matmul.splits_for(M, N, K, dev)}")
                 fn = int_mm_fn(a_op.contiguous(), b_op.contiguous())
                 lib = time_ms(fn) if fn is not None else None
             if have_library:
@@ -690,20 +737,64 @@ def main() -> int:
             tot["plain_ms"] += pms
             tot["t_bytes"] += t_b
             tot["t_ops"] += t_o
-            log(f"  {kname}{label} {shape}: {ms:.4f} ms (bound {max(t_b, t_o):.4f} ms, "
-                f"plain {pms:.4f} ms"
+            log(f"  {kname}{label} {shape}: {ms:.4f} ms "
+                + (f"(device {gms:.4f} ms in graph replay), " if gms is not None else "")
+                + f"(bound {max(t_b, t_o):.4f} ms, plain {pms:.4f} ms"
                 + (f", with its assembly {route:.4f} ms" if route is not None else "")
                 + (f", library {lib:.4f} ms)" if lib is not None else ")"))
         tot["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
         tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
         tot["library_ms"] = tot["library_ms"] if have_library else None
-        log(f"  {kname}{label}: {len(call_list)} calls, {tot['ms']:.4f} ms, bound "
+        log(f"  {kname}{label}: {len(call_list)} calls, {tot['ms']:.4f} ms, "
+            + (f"device {tot['graph_ms']:.4f} ms in graph replay, " if tot["graph_ms"] else "")
+            + f"bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), plain "
             f"{tot['plain_ms']:.4f} ms"
             + (f", with its assembly {tot['route_ms']:.4f} ms" if tot["route_ms"] else "")
             + (f", library {tot['library_ms']:.4f} ms ({libraries[kname]})"
                if have_library else ", library none"))
         return tot
+
+    # -- phase 5a: the split-K edges of both matmuls, A stored (K, M) as dW
+    # reads it: c0's dW shape, a K-tile count the split does not divide, a
+    # split with every K-tile masked, the last K-tile alone, and no K-tile
+    for case, k_tiles in (("c0 dW", 1024), ("ragged", 37), ("masked split", 37),
+                          ("last tile only", 37), ("all masked", 37)):
+        M, N, K = 128, 128, 128 * k_tiles
+        splits = bsp_matmul.splits_for(M, N, K, dev)
+        check(splits > 1, f"{case}: not split")
+        if case == "c0 dW":
+            check(splits >= 100, f"c0 dW: split {splits}")
+        else:
+            check(k_tiles % splits, f"{case}: {splits} divides {k_tiles}")
+        mask = torch.ones(k_tiles, 1, dtype=torch.int32, device=dev)
+        if case == "masked split":
+            lo, hi = bsp_matmul.split_bounds(k_tiles, splits)[1]
+            mask[lo:hi] = 0
+        elif case == "last tile only":
+            mask.zero_()
+            mask[-1] = 1
+        elif case == "all masked":
+            mask.zero_()
+        a8 = torch.randint(-127, 128, (K, M), device=dev, generator=gen,
+                           dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (K, N), device=dev, generator=gen,
+                           dtype=torch.int8)
+        scale = torch.tensor(3e-3, device=dev)
+        same("bsp_matmul_int8",
+             (bsp_matmul.bsp_matmul_int8(a8, b8, scale, mask, trans_a=True),),
+             (bsp_matmul.bsp_matmul_int8_plain(a8, b8, scale, mask, trans_a=True),),
+             f"split edge {case}")
+        kq = torch.randint(-6, 7, (K, M), device=dev, generator=gen, dtype=torch.int8)
+        bf = torch.randn(K, N, device=dev, generator=gen)
+        got = bsp_matmul.bsp_matmul(kq, scale, bf, mask, trans_a=True)
+        rel = banded("bsp_matmul_dequant", got, bsp_matmul.bsp_matmul_plain(
+            kq, scale, bf, mask, trans_a=True), K, f"split edge {case}")
+        check(torch.equal(got, bsp_matmul.bsp_matmul(kq, scale, bf, mask, trans_a=True)),
+              f"bsp_matmul_dequant split edge {case}: two launches differ")
+        log(f"phase 5a: {case} ({M}x{K}x{N}, {int(mask.sum())}/{k_tiles} K-tiles, "
+            f"split {splits}): int8 bit-exact, dequant relative L2 {rel:.3e} and "
+            f"equal over two launches")
 
     rows = []
     for kname in KERNELS:
@@ -715,6 +806,8 @@ def main() -> int:
                "max_abs_err": max_err[kname],
                **{k: tot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
+        if tot["graph_ms"]:
+            row["graph_ms"] = tot["graph_ms"]  # device time, no host dispatch
         if kname in encode_calls:
             # the same kernel's calls in the nsd step's residual encode, with
             # their launches over phase 4b's run
@@ -755,6 +848,14 @@ def main() -> int:
         log(f"phase 5c ({label}): peak device memory of one batch-{BATCH} step "
             f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above the "
             f"{base / 2**20:.1f} MiB held between steps ({card})")
+
+    # the f32-operand backward of phase 4c: the dequant row's device time
+    def f32_operand_backward():
+        for g, x, w, u, s in captured.values():
+            ops.dithered_backward_matmuls(g, x, w, u, s, int8_operands=False)
+
+    profile_step(torch, f32_operand_backward, card,
+                 "f32-operand backward of the 11 layers")
 
     # -- phases 6 and 7 ----------------------------------------------------
     print(json.dumps({"kernels": rows}))

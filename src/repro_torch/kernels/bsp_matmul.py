@@ -13,14 +13,53 @@ Counterparts of ``repro.kernels.bsp_matmul``:
 with f32 out, on 128 x 128 tiles. ``trans_a`` / ``trans_b`` say that an
 operand is stored transposed, so the weight-gradient product k^T . x reads
 k in place; ``mask`` is always the tile mask of A as stored.
+
+Both kernels split the contraction when the output tiles alone would not
+fill the card (:func:`split_k`): each of S blocks per output tile sums its
+own K-range into a workspace the wrapper allocates, and a second kernel in
+the same C launch adds the S partials. One Python-level launch per product.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
 TILE = 128
+MIN_SPLIT_TILES = 4  # K-tiles per split, at least (where there are that many)
+
+
+def split_k(m_tiles: int, n_tiles: int, k_tiles: int, sms: int) -> int:
+    """How many K-ranges the kernels cut a product into: a function of the
+    shapes alone, so the mask is never read on the host.
+
+    1 when the m_tiles x n_tiles output tiles already fill the ``sms``
+    streaming multiprocessors; else enough splits for about two waves of
+    blocks, with at least ``MIN_SPLIT_TILES`` K-tiles in each.
+    """
+    tiles = m_tiles * n_tiles
+    if tiles >= sms:
+        return 1
+    return max(1, min(-(-2 * sms // tiles), k_tiles // MIN_SPLIT_TILES))
+
+
+def split_bounds(k_tiles: int, splits: int) -> list:
+    """The K-tile range [begin, end) of each split, as the kernels cut it."""
+    return [(s * k_tiles // splits, (s + 1) * k_tiles // splits)
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(M: int, N: int, K: int, device: torch.device) -> int:
+    """:func:`split_k` for an (M, K) x (K, N) product on a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return split_k(M // TILE, N // TILE, K // TILE, _sm_count(index))
 
 
 def _check(a, b, mask, trans_a, trans_b, name="bsp_matmul_int8"):
@@ -82,9 +121,13 @@ def bsp_matmul_int8(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     build.check_cuda_operands("bsp_matmul_int8", a, scale, mask, align=4)
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
     build.check_cuda_operands("bsp_matmul_int8", c)
+    splits = splits_for(M, N, K, a.device)
+    # the split partials' scratch; the reduce adds them in the same launch
+    ws = (torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
+          if splits > 1 else None)
     build.launch("bsp_matmul_int8", "bsp_matmul_int8_launch", build.ptr(a),
                  build.ptr(b), build.ptr(scale), build.ptr(mask), build.ptr(c),
-                 M, N, K, int(trans_a), int(trans_b))
+                 build.ptr(ws), M, N, K, int(trans_a), int(trans_b), splits)
     return c
 
 
@@ -138,7 +181,10 @@ def bsp_matmul(k: torch.Tensor, delta: torch.Tensor, b: torch.Tensor,
     build.check_cuda_operands("bsp_matmul", k, delta, mask, align=4)
     c = torch.empty((M, N), dtype=torch.float32, device=k.device)
     build.check_cuda_operands("bsp_matmul", c)
+    splits = splits_for(M, N, K, k.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=k.device)
+          if splits > 1 else None)
     build.launch("bsp_matmul_dequant", "bsp_matmul_dequant_launch",
                  build.ptr(k), build.ptr(delta), build.ptr(b), build.ptr(mask),
-                 build.ptr(c), M, N, K, int(trans_a))
+                 build.ptr(c), build.ptr(ws), M, N, K, int(trans_a), splits)
     return c

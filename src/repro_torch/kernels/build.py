@@ -41,11 +41,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "nsd_quant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bitmap_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "bsp_matmul_int8_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bsp_matmul_int8_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bitmap_unpack_launch": (_P, _P, _I, _P),
     "levels_compact_launch": (_P, _P, _P, _I, _P),
     "levels_expand_launch": (_P, _P, _P, _I, _P),
-    "bsp_matmul_dequant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bsp_matmul_dequant_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _lib = None
 
@@ -112,8 +112,9 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's data pointer for a C argument; None passes NULL."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def launch(name: str, fn_name: str, *args) -> None:

@@ -248,3 +248,165 @@ def test_dequant_rejects_bad_operands():
         bsp_matmul.bsp_matmul(meta, torch.tensor(1.0, device="meta"),
                               torch.zeros(128, 128, device="meta"),
                               torch.ones(1, 1, dtype=torch.int32, device="meta"))
+
+
+# -- split-K: the plan and the partials' reduction, emulated on the CPU ----
+
+H100_SMS = 132
+# VGG11-CIFAR's products at batch 128 as ops.py forms them, in 128-tiles:
+# (m_tiles, n_tiles, k_tiles); dW^T = k^T . x is (N_out, T) x (T, K_in) and
+# dx = k . w^T is (T, N_out) x (N_out, K_in), padded to 128
+VGG11_PRODUCTS = {
+    "c0 dW": (1, 1, 1024), "c1 dW": (1, 5, 256), "c2 dW": (2, 9, 64),
+    "c3 dW": (2, 18, 64), "c4 dW": (4, 18, 16), "c5 dW": (4, 36, 16),
+    "c7 dW": (4, 36, 4), "fc0 dW": (4, 4, 1), "c1 dx": (256, 5, 1),
+    "c3 dx": (64, 18, 2), "c7 dx": (4, 36, 4), "fc2 dx": (1, 4, 4),
+}
+
+
+@pytest.mark.parametrize("tiles", list(VGG11_PRODUCTS.values()) +
+                         [(1, 1, 37), (3, 2, 5), (1, 1, 1), (1, 2, 3), (7, 1, 129)],
+                         ids=list(VGG11_PRODUCTS) + ["ragged", "odd", "one",
+                                                     "short", "prime"])
+def test_split_plan_covers_every_k_tile_once(tiles):
+    m, n, k = tiles
+    splits = bsp_matmul.split_k(m, n, k, H100_SMS)
+    bounds = bsp_matmul.split_bounds(k, splits)
+    assert [kt for lo, hi in bounds for kt in range(lo, hi)] == list(range(k))
+    assert all(hi > lo for lo, hi in bounds)  # no empty split
+    if m * n >= H100_SMS:
+        assert splits == 1  # the output tiles fill the card: one pass
+    if splits > 1:
+        assert all(hi - lo >= bsp_matmul.MIN_SPLIT_TILES for lo, hi in bounds)
+        assert m * n * splits <= 2 * H100_SMS + m * n  # about two waves
+
+
+def test_split_plan_spreads_c0_dw_over_the_card():
+    assert bsp_matmul.split_k(*VGG11_PRODUCTS["c0 dW"], H100_SMS) >= 100
+
+
+def _split_k_int8_emulation(a, b, scale, mask, bounds, order):
+    """Split-K as the int8 kernel reduces it: each K-range's partial sum
+    as int32 (two's complement, wrapped), the partials added in ``order``
+    with int32 wrap-around, then one f32 conversion and one f32 multiply.
+    a (M, K) and b (K, N) int8 as the logical operands, mask (M/128, K/128).
+    """
+    keep = np.repeat(np.repeat(mask != 0, 128, 0), 128, 1)
+    a_kept = np.where(keep, a, 0)
+    partials = []
+    for lo, hi in bounds:
+        sl = slice(lo * 128, hi * 128)
+        # float64 sums int8 products exactly (far below 2^53)
+        exact = a_kept[:, sl].astype(np.float64) @ b[sl].astype(np.float64)
+        partials.append(exact.astype(np.int64).astype(np.int32))
+    acc = np.zeros_like(partials[0])
+    for i in order:
+        acc = acc + partials[i]  # int32 arrays wrap
+    return acc.astype(np.float32) * np.float32(scale)
+
+
+@pytest.mark.parametrize("k_tiles,kind", [(37, "random"), (37, "full"),
+                                          (64, "random"), (5, "random")])
+def test_split_int8_partials_reduce_to_the_plain_bits(k_tiles, kind):
+    M, N, K = 256, 128, 128 * k_tiles
+    a, b = _i8((M, K), 30 + k_tiles), _i8((K, N), 31)
+    mask = _mask((M // 128, k_tiles), kind, 32)
+    scale = np.float32(2.3e-4)
+    splits = bsp_matmul.split_k(M // 128, N // 128, k_tiles, H100_SMS)
+    order = np.random.default_rng(k_tiles).permutation(splits)
+    got = _split_k_int8_emulation(a, b, scale, mask,
+                                  bsp_matmul.split_bounds(k_tiles, splits), order)
+    want = bsp_matmul.bsp_matmul_int8_plain(
+        torch.from_numpy(a), torch.from_numpy(b), torch.tensor(scale),
+        torch.from_numpy(mask))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_split_int8_partials_wrap_to_the_plain_bits():
+    """A K-range whose int32 partial wraps: 1,025 tiles of (-128) x (-128)
+    sum to 2,149,580,800 > 2^31 - 1, and the last tile adds
+    -128 * 127 * 128. The wrapped partials, added in either order, give
+    the bits of the plain version's wrapped exact sum."""
+    k_tiles = 1026
+    M = N = 128
+    a = np.full((M, 128 * k_tiles), -128, np.int8)
+    b = np.full((128 * k_tiles, N), -128, np.int8)
+    b[-128:] = 127
+    mask = np.ones((1, k_tiles), np.int32)
+    bounds = [(0, k_tiles - 1), (k_tiles - 1, k_tiles)]
+    want = bsp_matmul.bsp_matmul_int8_plain(
+        torch.from_numpy(a), torch.from_numpy(b), torch.tensor(1.0),
+        torch.from_numpy(mask)).numpy()
+    assert 128 * 128 * 128 * (k_tiles - 1) > 2**31 - 1  # partial 0 wraps
+    for order in ([0, 1], [1, 0]):
+        got = _split_k_int8_emulation(a, b, np.float32(1.0), mask, bounds, order)
+        np.testing.assert_array_equal(got, want)
+
+
+def _tf32_rna(x):
+    """f32 -> TF32 (10 stored mantissa bits), round to nearest, ties away:
+    the dequant kernel's bit arithmetic (that of cvt.rna.tf32.f32)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+REDUCE_ROWS = 8  # bsp_split.cuh's kReduceRows
+
+
+def _split_k_tf32_emulation(k, delta, b, mask, splits, parts=("lo", "hi")):
+    """The dequant kernel's arithmetic in numpy: B split into TF32 parts
+    B_hi = tf32(B) and B_lo = tf32(B - B_hi); per split an f32 accumulator
+    over its occupied K-tiles, each tile adding k . B_lo, then k . B_hi;
+    the split partials added in the reduce kernel's fixed order (row y
+    sums partials y, y + 8, ... in turn, then the rows are added in y
+    order); one multiply by delta. (The tensor core's own order inside a
+    tile is not reproduced.)"""
+    M, K = k.shape
+    b_hi = _tf32_rna(b)
+    b_part = {"hi": b_hi, "lo": _tf32_rna(b - b_hi)}
+    kf = k.astype(np.float32)
+    partials = []
+    for lo, hi in bsp_matmul.split_bounds(K // 128, splits):
+        acc = np.zeros((M, b.shape[1]), np.float32)
+        for kt in range(lo, hi):
+            rows = np.repeat(mask[:, kt] != 0, 128)[:, None]
+            sl = slice(kt * 128, (kt + 1) * 128)
+            for p in parts:
+                acc = acc + np.where(rows, kf[:, sl] @ b_part[p][sl], np.float32(0))
+        partials.append(acc)
+    if splits == 1:
+        total = partials[0]
+    else:
+        row_sums = [sum(partials[y::REDUCE_ROWS], np.zeros_like(partials[0]))
+                    for y in range(REDUCE_ROWS)]
+        total = row_sums[0]
+        for r in row_sums[1:]:
+            total = total + r
+    return total * np.float32(delta)
+
+
+@pytest.mark.parametrize("mkn,kind", [((256, 128, 128), "random"),
+                                      ((128, 131072, 128), "full")],
+                         ids=["K=128", "c0 dW K=131072"])
+def test_split_tf32_emulation_within_band_of_blocked_reference(mkn, kind):
+    """The hi/lo TF32 split, summed in the kernel's order, is within
+    8 sqrt(K) 2^-24 relative L2 of the reference's blocked f32 oracle; the
+    high part alone (plain TF32) is not, at K = 128."""
+    M, K, N = mkn
+    k = _i8((M, K), 40)
+    b = np.random.default_rng(41).standard_normal((K, N)).astype(np.float32)
+    mask = _mask((M // 128, K // 128), kind, 42)
+    delta = np.float32(1.7e-3)
+    ref = np.asarray(bsp_matmul_blocked_ref(
+        jnp.asarray(k), jnp.float32(delta), jnp.asarray(b), jnp.asarray(mask)),
+        np.float64)
+    splits = bsp_matmul.split_k(M // 128, N // 128, K // 128, H100_SMS)
+    band = 8 * np.sqrt(K) * U
+
+    def rel(x):
+        return np.linalg.norm(x.astype(np.float64) - ref) / np.linalg.norm(ref)
+
+    assert rel(_split_k_tf32_emulation(k, delta, b, mask, splits)) <= band
+    if K == 128:
+        assert rel(_split_k_tf32_emulation(k, delta, b, mask, splits,
+                                           parts=("hi",))) > band

@@ -208,3 +208,75 @@ def test_dense_nsd_residual_launches_each_kernel(cuda):
                               "levels_compact": 1, "levels_expand": 1,
                               "bsp_matmul_dequant": 0}
     assert torch.isfinite(w.grad).all()
+
+
+# The split-K edges of both tile-skipping products, with A stored transposed
+# as in dW = k^T . x: c0's dW at batch 128 (one output tile over 1,024
+# K-tiles), a K-tile count the split count does not divide, a split whose
+# K-tiles are all masked, only the last K-tile occupied, and no tile at all.
+SPLIT_CASES = {"c0_dw": 1024, "ragged": 37, "masked_split": 37,
+               "last_tile_only": 37, "all_masked": 37}
+
+
+def _split_case(kind, case, cuda):
+    """(k or a, b, scale or delta, mask) stored as dW reads them, and the
+    product's split count."""
+    k_tiles = SPLIT_CASES[case]
+    M, N, K = 128, 128, 128 * k_tiles
+    g = torch.Generator(device=cuda).manual_seed(k_tiles)
+    lim = 128 if kind == "int8" else 7
+    a = torch.randint(-lim + 1, lim, (K, M), device=cuda, generator=g,
+                      dtype=torch.int8)
+    if kind == "int8":
+        b = torch.randint(-127, 128, (K, N), device=cuda, generator=g,
+                          dtype=torch.int8)
+    else:
+        b = torch.randn(K, N, device=cuda, generator=g)
+    splits = bsp_matmul.splits_for(M, N, K, cuda)
+    mask = torch.ones(k_tiles, 1, dtype=torch.int32, device=cuda)
+    if case == "masked_split":
+        lo, hi = bsp_matmul.split_bounds(k_tiles, splits)[1]
+        mask[lo:hi] = 0
+    elif case == "last_tile_only":
+        mask.zero_()
+        mask[-1] = 1
+    elif case == "all_masked":
+        mask.zero_()
+    return a, b, torch.tensor(3e-3, device=cuda), mask, splits
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("kind", ["int8", "dequant"])
+def test_split_k_edges_match_plain(cuda, kind, case):
+    a, b, scale, mask, splits = _split_case(kind, case, cuda)
+    k_tiles = mask.shape[0]
+    assert splits > 1
+    if case == "c0_dw":
+        assert splits >= 100
+    else:
+        assert k_tiles % splits != 0
+    name = "bsp_matmul_int8" if kind == "int8" else "bsp_matmul_dequant"
+    before = build.LAUNCHES[name]
+    if kind == "int8":
+        got = bsp_matmul.bsp_matmul_int8(a, b, scale, mask, trans_a=True)
+        want = bsp_matmul.bsp_matmul_int8_plain(a, b, scale, mask, trans_a=True)
+    else:
+        got = bsp_matmul.bsp_matmul(a, scale, b, mask, trans_a=True)
+        want = bsp_matmul.bsp_matmul_plain(a, scale, b, mask, trans_a=True)
+    assert build.LAUNCHES[name] == before + 1  # one launch per product
+    if case == "all_masked":
+        assert not got.any()
+    if kind == "int8" or case == "all_masked":
+        assert torch.equal(got, want)
+        return
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 8 * math.sqrt(a.shape[0]) * 2.0 ** -24
+
+
+def test_split_dequant_is_deterministic(cuda):
+    """The f32 partials add in a fixed order, never by atomics: two launches
+    on the same inputs give the same bits."""
+    a, b, delta, mask, splits = _split_case("dequant", "c0_dw", cuda)
+    first = bsp_matmul.bsp_matmul(a, delta, b, mask, trans_a=True)
+    second = bsp_matmul.bsp_matmul(a, delta, b, mask, trans_a=True)
+    assert splits > 1 and torch.equal(first, second)
