@@ -10,13 +10,17 @@ Phases (any failure exits non-zero and prints no result):
      plain PyTorch versions at the padded shapes of VGG11 layers c1 and c5
      at batch 128, plus edge cases (delta = 0, empty tiles, full and empty
      masks);
-  3b. hold the levels compact and expand and the bitmap-unpack kernels bit
-     for bit against their plain versions at c1's residual size at batch
-     128 (2,097,152 elements, 8,192 chunks) and at the edges (an all-zero
-     and an all-non-zero chunk, one chunk, n = 1000 through the wire
-     container), and the dequant product within its band (relative L2
-     <= 8 sqrt(K) 2^-24 for a K-long contraction) at the c1 and c5 dx and
-     dW shapes with full, empty and partial masks;
+  3b. hold the levels compact and expand kernels (chunk-local, and the
+     one-launch wire kernels that lay out a whole chunk stream: levels,
+     bitmap and nnz; its decode) and the bitmap-unpack kernel bit for bit
+     against their plain versions at c1's residual size at batch 128
+     (2,097,152 elements, 8,192 chunks) and at the edges (an all-zero and
+     an all-non-zero chunk, an all-zero and an all-non-zero tensor, one
+     chunk, 2^18 chunks for the wire kernels, n = 1000 through the wire
+     container), and the dequant product
+     within its band (relative L2 <= 8 sqrt(K) 2^-24 for a K-long
+     contraction) at the c1 and c5 dx and dW shapes with full, empty and
+     partial masks;
   4. train VGG11-CIFAR at full width, batch 128, 5 steps, variant=kernel,
      through ``repro_torch.train.classifier.train_classifier``; check the
      loss is finite, the launch counts (per step: NSD 11, pack 11, bsp 21,
@@ -28,8 +32,9 @@ Phases (any failure exits non-zero and prints no result):
   4b. the same training with ``memory="default=nsd"``: every dithered
      layer's input is NSD-encoded into the wire container in the forward
      and decoded in the backward. Check the loss is finite, the launch
-     counts (per step: NSD 22, pack 22, compact 11, unpack 11, expand 11,
-     bsp 21), no fallback, ``residual_compression`` equal to the plain
+     counts (per step: NSD 22, pack 11, wire compact 11, wire expand 11,
+     bsp 21; the unpack kernel 0, since the wire expand reads the bitmap
+     itself), no fallback, ``residual_compression`` equal to the plain
      versions' run (relative 1e-6), sparsity within 8 points of phase 4's
      run, step-1 gradients against the plain versions (relative L2 <=
      1e-5), and step-1 BatchNorm and bias gradients and dither telemetry
@@ -38,25 +43,34 @@ Phases (any failure exits non-zero and prints no result):
      int8_operands=False)`` on every layer's captured (g, x, w, u) of one
      step, held to its plain versions and to the paper variant's f32
      products within the dequant band, with its launches counted;
-  5. capture every kernel input of one step (for the NSD and pack kernels
-     their cotangent calls of the fp32 step and, apart, their calls in the
-     nsd step's residual encode), hold each call against its plain version
-     again (the dequant product also against a second launch of itself,
-     bit for bit), log each matmul call's split-K count, and time kernel,
-     plain version and the library yardstick with CUDA events, beside the
+  5. capture every kernel input of one step (for the NSD kernel its
+     cotangent calls of the fp32 step and, apart, its calls in the nsd
+     step's residual encode; for compact and expand the wire calls of the
+     nsd step; for unpack, which no path launches now, the bitmaps of
+     those decodes), hold each call against its plain version again (the
+     dequant product and the wire kernels also against a second launch of
+     themselves, the wire kernels also against a CUDA-graph replay, bit for
+     bit), log each matmul call's split-K count, and time kernel, plain
+     version and the library yardstick with CUDA events (the matmuls and
+     the wire kernels also by CUDA-graph replay; the chunk-local compact
+     and expand on the same chunks on lines of their own), beside the
      least time the card could take (bytes over 3.35 TB/s, or operations
      over the peak rate of the units that do them); then break one step's
-     device time down with torch.profiler, for fp32 and for nsd residuals
-     and for the f32-operand backward, and print one step's peak device
-     memory for the first two;
+     device time (and the host's self CPU time by op) down with
+     torch.profiler, for fp32 and for nsd residuals and for the
+     f32-operand backward, and print one step's peak device memory for the
+     first two;
   5a. (before the timing) the split-K edges of both matmuls, with A read
      transposed as dW reads it: c0's dW shape at batch 128 (128 x 131,072
      x 128, which must run split), a K-tile count the split count does not
      divide, a split whose K-tiles are all masked, only the last K-tile
      occupied, and an all-masked mask (zeros); the int8 product bit-exact,
      the dequant product within its band and equal over two launches;
-  6. print one JSON line naming the seven kernels (the NSD and pack rows
-     carry their residual-encode figures under ``nsd_residual_encode``);
+  5d. time the fp32-residual and the nsd forward+backward step in turns
+     (host clock around synchronised steps, median of 15 each) and print
+     the nsd step's excess;
+  6. print one JSON line naming the seven kernels (the NSD row carries its
+     residual-encode figures under ``nsd_residual_encode``);
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -78,11 +92,12 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core peak
 BATCH, STEPS, SEED = 128, 5, 0
+STEP_PAIRS = 15  # phase 5d: fp32 and nsd steps, taken in turns
 PER_STEP = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_int8": 21}
-# memory="default=nsd": each of the 11 layers encodes its input (NSD, pack,
-# compact) in the forward and decodes it (unpack, expand) in the backward
-NSD_PER_STEP = {"nsd_quant": 22, "bitmap_pack": 22, "bsp_matmul_int8": 21,
-                "levels_compact": 11, "bitmap_unpack": 11, "levels_expand": 11,
+# memory="default=nsd": each of the 11 layers encodes its input (NSD, wire
+# compact) in the forward and decodes it (wire expand) in the backward
+NSD_PER_STEP = {"nsd_quant": 22, "bitmap_pack": 11, "bsp_matmul_int8": 21,
+                "levels_compact": 11, "bitmap_unpack": 0, "levels_expand": 11,
                 "bsp_matmul_dequant": 0}
 # the f32-operand backward of the 11 layers: one NSD and pack each, both
 # products on the dequant kernel
@@ -165,16 +180,28 @@ def profile_step(torch, step_fn, card, label, steps=3):
     log(f"phase 5b ({label}): forward+backward of one batch-{BATCH} step: wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} device kernels launched ({card})")
-    # a matmul's name also matches its split-K reduce kernel, listed after it
+    # a matmul's name also matches its split-K reduce kernel, listed after it;
+    # "Memset" counts the wire kernels' workspace clears among others
     for name in ("nsd_quant_kernel", "bitmap_pack_kernel", "bsp_int8_kernel",
                  "bsp_int8_kernel_reduce", "levels_compact_kernel",
-                 "bitmap_unpack_kernel", "levels_expand_kernel",
-                 "bsp_dequant_kernel", "bsp_dequant_kernel_reduce"):
+                 "levels_compact_wire_kernel", "bitmap_unpack_kernel",
+                 "levels_expand_kernel", "levels_expand_wire_kernel",
+                 "bsp_dequant_kernel", "bsp_dequant_kernel_reduce", "Memset"):
         ms = sum(r[0] for r in rows if name in r[2])
         n = sum(r[1] for r in rows if name in r[2])
         log(f"  port kernel {name}: {ms:.4f} ms device time per step over {n} launches")
     for ms, n, key in rows[:15]:
         log(f"  {ms:9.4f} ms  x{n:<4d} {key[:100]}")
+    # the host side: self CPU time of the recorded (aten) ops; the rest of
+    # the wall is Python, ctypes launches and the profiler's own cost
+    host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU
+                   and e.self_cpu_time_total > 0), reverse=True)
+    log(f"  host: {sum(h[0] for h in host):.3f} ms per step of self CPU time in "
+        f"{sum(h[1] for h in host)} recorded ops, under the profiler")
+    for ms, n, key in host[:8]:
+        log(f"  host {ms:9.4f} ms  x{n:<4d} {key[:80]}")
 
 
 def main() -> int:
@@ -211,8 +238,8 @@ def main() -> int:
                "bitmap_pack": (pack, "bitmap_pack_blocked"),
                "bsp_matmul_int8": (bsp_matmul, "bsp_matmul_int8"),
                "bitmap_unpack": (pack, "bitmap_unpack"),
-               "levels_compact": (levels, "levels_compact"),
-               "levels_expand": (levels, "levels_expand"),
+               "levels_compact": (levels, "levels_compact_wire"),
+               "levels_expand": (levels, "levels_expand_wire"),
                "bsp_matmul_dequant": (bsp_matmul, "bsp_matmul")}
     kernel = {k: getattr(m, a) for k, (m, a) in modules.items()}
     plain = {k: getattr(m, a + "_plain") for k, (m, a) in modules.items()}
@@ -327,6 +354,20 @@ def main() -> int:
         check(torch.equal(unpacked, mask), f"bitmap_unpack {what}: not the mask")
     counts = levels.levels_compact(k)[1]
     check(int(counts[0]) == 0 and int(counts[1]) == 256, "edge chunk counts")
+    # the wire kernels: the whole chunk stream in one launch each way
+    # (2^18 chunks: 8,192 blocks, more than the card holds at once)
+    for what, kk in (("c1 residual", k), ("all-zero c1 residual", torch.zeros_like(k)),
+                     ("all-non-zero c1 residual", sparse_levels(8192, 1.0)),
+                     ("one chunk", sparse_levels(1, 0.4)),
+                     ("2^18 chunks", sparse_levels(1 << 18, 0.6))):
+        got = levels.levels_compact_wire(kk)
+        same("levels_compact", got, levels.levels_compact_wire_plain(kk), f"wire {what}")
+        check(int(got[2]) == int((kk != 0).sum()), f"levels_compact wire {what}: nnz")
+        out = levels.levels_expand_wire(got[0], got[1])
+        same("levels_expand", (out,), (levels.levels_expand_wire_plain(got[0], got[1]),),
+             f"wire {what}")
+        check(torch.equal(out, kk), f"levels_expand wire {what}: not the inverse of compact")
+    del got, out, kk
     for n in (1000, 2_097_152):  # not a chunk multiple; c1's residual size
         xr = torch.relu(torch.randn(n, device=dev, generator=gen))
         ur = torch.rand(n, device=dev, generator=gen) - 0.5
@@ -356,8 +397,9 @@ def main() -> int:
                 rels.append(banded("bsp_matmul_dequant", got, want, contraction,
                                    f"{name} {'dW' if ta else 'dx'} mask={mname}"))
     torch.cuda.synchronize()
-    log(f"phase 3b: compact, expand and unpack bit-exact against their plain "
-        f"versions (max abs err {max(max_err[k] for k in ('levels_compact', 'levels_expand', 'bitmap_unpack'))}), "
+    log(f"phase 3b: compact, expand (chunk-local and wire) and unpack bit-exact "
+        f"against their plain versions (max abs err "
+        f"{max(max_err[k] for k in ('levels_compact', 'levels_expand', 'bitmap_unpack'))}), "
         f"wire container n=1000 and n=2097152 identical on both routes; dequant "
         f"within its band (worst relative L2 {max(rels):.3e}, max abs err "
         f"{max_err['bsp_matmul_dequant']:.3e})")
@@ -537,10 +579,10 @@ def main() -> int:
 
     # -- phase 5 ----------------------------------------------------------
     old = ("nsd_quant", "bitmap_pack", "bsp_matmul_int8")
-    resid = ("levels_compact", "bitmap_unpack", "levels_expand")
-    # the NSD and pack calls of the nsd step's residual encode, on the
-    # (n_chunks, 256) views: the cotangents' calls are those of ``old``
-    encode_calls = {"nsd_quant": [], "bitmap_pack": []}
+    resid = ("levels_compact", "levels_expand")
+    # the NSD calls of the nsd step's residual encode, on the (n_chunks,
+    # 256) views: the cotangents' calls are those of ``old``
+    encode_calls = {"nsd_quant": []}
     real_pack_nsd = wire.pack_nsd
 
     def recording_pack_nsd(*a, **kw):
@@ -555,8 +597,12 @@ def main() -> int:
             step1(MEMORY)
     finally:
         wire.pack_nsd = real_pack_nsd
+    # no path launches the unpack kernel: it is held and timed on the
+    # bitmaps of the nsd step's decodes
+    calls["bitmap_unpack"] = [([bm], {}) for (_, bm), _ in calls["levels_expand"]]
     for kname, n in list(PER_STEP.items()) + [(k, NSD_PER_STEP[k]) for k in resid] \
-            + [("bsp_matmul_dequant", F32_OPERAND_LAUNCHES["bsp_matmul_dequant"])]:
+            + [("bitmap_unpack", NSD_PER_STEP["levels_expand"]),
+               ("bsp_matmul_dequant", F32_OPERAND_LAUNCHES["bsp_matmul_dequant"])]:
         check(len(calls[kname]) == n, f"captured {len(calls[kname])} {kname} calls")
     for kname, got in encode_calls.items():
         want = NSD_PER_STEP[kname] - PER_STEP[kname]
@@ -580,10 +626,9 @@ def main() -> int:
             per.append(a.elapsed_time(b) / launches)
         return statistics.median(per)
 
-    def graph_ms(fn, launches=10, groups=5):
-        """Device time per launch without the host's dispatch: ``launches``
-        calls captured in one CUDA graph, whose replays are timed with CUDA
-        events (median over groups)."""
+    def capture(fn, launches):
+        """A CUDA graph of ``launches`` calls of fn (after one warm-up call
+        on a side stream), replayed once, and the last call's outputs."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -592,9 +637,16 @@ def main() -> int:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(launches):
-                fn()
+                out = fn()
         graph.replay()
         torch.cuda.synchronize()
+        return graph, out
+
+    def graph_ms(fn, launches=10, groups=5):
+        """Device time per launch without the host's dispatch: ``launches``
+        calls captured in one CUDA graph, whose replays are timed with CUDA
+        events (median over groups)."""
+        graph, _ = capture(fn, launches)
         per = []
         for _ in range(groups):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -604,6 +656,13 @@ def main() -> int:
             b.synchronize()
             per.append(a.elapsed_time(b) / launches)
         return statistics.median(per)
+
+    def graph_outputs(fn):
+        """fn's outputs from a CUDA graph of one call, after two replays."""
+        graph, out = capture(fn, 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        return out if isinstance(out, tuple) else (out,)
 
     def int_mm_fn(a, b):
         """torch._int_mm on the dense operands, in the layout it accepts."""
@@ -628,11 +687,18 @@ def main() -> int:
                   f"{kname} path call {i}: two launches differ")
         else:
             same(kname, got, want, f"path call {i}")
+        if kname in resid:
+            again = kernel[kname](*args, **kw)
+            again = again if isinstance(again, tuple) else (again,)
+            replayed = graph_outputs(lambda: kernel[kname](*args, **kw))
+            for g, a, r in zip(got, again, replayed):
+                check(torch.equal(g, a), f"{kname} path call {i}: two launches differ")
+                check(torch.equal(g, r), f"{kname} path call {i}: graph replay differs")
 
     libraries = {
         "bsp_matmul_int8": "torch._int_mm on the dense int8 operands",
-        "levels_compact": "torch.masked_select(k, k != 0): compact and its assembly",
-        "levels_expand": "masked_scatter of the global levels: expand and its assembly",
+        "levels_compact": "torch.masked_select(k, k != 0): the wire levels",
+        "levels_expand": "masked_scatter of the wire levels into zeros",
         "bsp_matmul_dequant": "torch.matmul on the dense dequantized f32 operands, TF32 off",
     }
 
@@ -640,16 +706,18 @@ def main() -> int:
         """Check each recorded call against the plain version and sum the
         kernel, plain, library and bound times over the calls."""
         tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
-                   route_ms=0.0, graph_ms=0.0)
+                   local_ms=0.0, graph_ms=0.0)
         have_library = kname in libraries
         for i, (args, kw) in enumerate(call_list):
             check_call(kname, args, kw, i)
             ms = time_ms(lambda: kernel[kname](*args, **kw))
             pms = time_ms(lambda: plain[kname](*args, **kw), launches=2, groups=3)
-            lib = route = None
-            # the two matmuls: their device time per call, from graph replays
+            lib = local = None
+            # the two matmuls and the wire kernels: their device time per
+            # call, from graph replays
             gms = (graph_ms(lambda: kernel[kname](*args, **kw))
-                   if kname in ("bsp_matmul_int8", "bsp_matmul_dequant") else None)
+                   if kname in ("bsp_matmul_int8", "bsp_matmul_dequant") + resid
+                   else None)
             if gms is not None:
                 tot["graph_ms"] += gms
             if kname == "nsd_quant":
@@ -668,26 +736,29 @@ def main() -> int:
                 nops, rate = 0, INT8_OPS_PER_S
                 shape = f"{M}x{NB * 8}"
             elif kname == "levels_compact":
+                # the wire kernel: read k, write the levels, bitmap and nnz
                 k_c = args[0]
                 C = k_c.shape[0]
-                nbytes, nops, rate = 2 * C * 256 + 4 * C, 0, INT8_OPS_PER_S
+                nbytes, nops, rate = C * 256 * 2 + C * 32 + 4, 0, INT8_OPS_PER_S
                 shape = f"{C} chunks"
                 flat = k_c.reshape(-1)
                 lib = time_ms(lambda: torch.masked_select(flat, flat != 0))
-                route = time_ms(lambda: wire._compact_chunks(k_c))
+                local = time_ms(lambda: levels.levels_compact(k_c))
             elif kname == "levels_expand":
-                lv, m_c = args
-                C = lv.shape[0]
-                nbytes, nops, rate = 3 * C * 256, 0, INT8_OPS_PER_S
-                shape = f"{C} chunks"
-                occ = (m_c != 0).reshape(-1)
-                live = torch.arange(256, device=dev)[None, :] < occ.reshape(C, 256).sum(1, keepdim=True)
-                glob = lv[live]  # the global levels, compacted in order
-                levels_full = torch.nn.functional.pad(glob, (0, C * 256 - glob.numel()))
+                # the wire kernel: read the bitmap and the live levels, write k
+                lv, bm = args
+                C = bm.shape[0]
+                nnz = int(wire.popcount_u8(bm).sum())
+                nbytes, nops, rate = C * 32 + nnz + C * 256, 0, INT8_OPS_PER_S
+                shape = f"{C} chunks, {nnz} levels"
+                occ = wire.unpack_bitmap(bm).reshape(-1)
+                glob = lv[:nnz]
                 lib = time_ms(lambda: torch.zeros(C * 256, dtype=torch.int8, device=dev
                                                   ).masked_scatter_(occ, glob))
-                bm = wire.pack_bitmap(occ.reshape(C, 256))
-                route = time_ms(lambda: wire._expand_chunks(levels_full, bm))
+                k_full = levels.levels_expand_wire(lv, bm)
+                lv_local, _ = levels.levels_compact(k_full)
+                m_local = (k_full != 0).to(torch.int8)
+                local = time_ms(lambda: levels.levels_expand(lv_local, m_local))
             elif kname == "bsp_matmul_dequant":
                 k_st, d, b_op, mask = args
                 ta = kw.get("trans_a", False)
@@ -730,8 +801,8 @@ def main() -> int:
                     have_library = False
                 else:
                     tot["library_ms"] += lib
-            if route is not None:
-                tot["route_ms"] += route
+            if local is not None:
+                tot["local_ms"] += local
             t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / rate * 1e3
             tot["ms"] += ms
             tot["plain_ms"] += pms
@@ -740,7 +811,6 @@ def main() -> int:
             log(f"  {kname}{label} {shape}: {ms:.4f} ms "
                 + (f"(device {gms:.4f} ms in graph replay), " if gms is not None else "")
                 + f"(bound {max(t_b, t_o):.4f} ms, plain {pms:.4f} ms"
-                + (f", with its assembly {route:.4f} ms" if route is not None else "")
                 + (f", library {lib:.4f} ms)" if lib is not None else ")"))
         tot["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
         tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
@@ -750,9 +820,11 @@ def main() -> int:
             + f"bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), plain "
             f"{tot['plain_ms']:.4f} ms"
-            + (f", with its assembly {tot['route_ms']:.4f} ms" if tot["route_ms"] else "")
             + (f", library {tot['library_ms']:.4f} ms ({libraries[kname]})"
                if have_library else ", library none"))
+        if tot["local_ms"]:
+            log(f"  {kname}{label}: the chunk-local kernel on the same chunks, "
+                f"{len(call_list)} calls, {tot['local_ms']:.4f} ms")
         return tot
 
     # -- phase 5a: the split-K edges of both matmuls, A stored (K, M) as dW
@@ -808,6 +880,9 @@ def main() -> int:
                                       "library_ms")}}
         if tot["graph_ms"]:
             row["graph_ms"] = tot["graph_ms"]  # device time, no host dispatch
+        if kname == "bitmap_unpack":
+            row["note"] = ("no path launches it: the wire expand reads the bitmap "
+                           "itself; held and timed on the nsd step's decode bitmaps")
         if kname in encode_calls:
             # the same kernel's calls in the nsd step's residual encode, with
             # their launches over phase 4b's run
@@ -820,14 +895,16 @@ def main() -> int:
     log(f"phase 5: per-kernel times are sums over the launches of one "
         f"batch-{BATCH} step (the f32-operand backward's 22 products for the "
         f"dequant kernel; the NSD and pack rows' cotangent calls of the fp32 "
-        f"step, and their residual-encode calls of the nsd step apart); step time kernel path {res['ms_per_step']:.2f} ms, "
+        f"step, the NSD row's residual-encode calls of the nsd step apart; the "
+        f"compact and expand rows the nsd step's wire calls); step time kernel "
+        f"path {res['ms_per_step']:.2f} ms, "
         f"plain versions {res_plain['ms_per_step']:.2f} ms; with nsd residuals "
         f"{res_nsd['ms_per_step']:.2f} ms, plain versions "
         f"{res_nsd_plain['ms_per_step']:.2f} ms ({card})")
 
     # -- phase 5b: where one step's device time goes (torch.profiler) -----
     # -- phase 5c: one step's peak device memory ---------------------------
-    for label, memory in (("fp32 residuals", None), (f"memory={MEMORY!r}", MEMORY)):
+    def make_step(memory):
         net = CNN(cfg, seed=SEED)
         ctx = DitherCtx(policy.replace(collect_stats=False), seed=SEED, step=0,
                         memory=as_memory_policy(memory))
@@ -836,7 +913,11 @@ def main() -> int:
             for p in net.parameters():
                 p.grad = None
             loss_fn(net, batch0, ctx=ctx).backward()
+        return fwd_bwd
 
+    configs = (("fp32 residuals", None), (f"memory={MEMORY!r}", MEMORY))
+    for label, memory in configs:
+        fwd_bwd = make_step(memory)
         profile_step(torch, fwd_bwd, card, label)
         fwd_bwd()
         torch.cuda.synchronize()
@@ -848,6 +929,23 @@ def main() -> int:
         log(f"phase 5c ({label}): peak device memory of one batch-{BATCH} step "
             f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above the "
             f"{base / 2**20:.1f} MiB held between steps ({card})")
+
+    # -- phase 5d: the nsd step's cost over fp32 residuals, on the host
+    # clock, the two steps taken in turns so that both see the same host
+    steps = {label: make_step(memory) for label, memory in configs}
+    wall = {label: [] for label in steps}
+    for _ in range(STEP_PAIRS):
+        for label, fwd_bwd in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            wall[label].append((time.perf_counter() - t0) * 1e3)
+    med = {label: statistics.median(w) for label, w in wall.items()}
+    fp32_ms, nsd_ms = med.values()
+    log(f"phase 5d: forward+backward of one batch-{BATCH} step, median of "
+        f"{STEP_PAIRS} taken in turns: fp32 residuals {fp32_ms:.3f} ms, "
+        f"memory={MEMORY!r} {nsd_ms:.3f} ms, excess {nsd_ms - fp32_ms:+.3f} ms ({card})")
 
     # the f32-operand backward of phase 4c: the dequant row's device time
     def f32_operand_backward():

@@ -8,9 +8,11 @@ Counterpart of ``repro.kernels.pack``:
   the packed bitmap: from int8 k (M, N) one pass gives the LSB-first bitmap
   (M, N/8), the per-tile nnz and the tile mask;
 * ``bitmap_unpack`` (the reference's ``bitmap_unpack_blocked``): bitmap
-  (M, N/8) -> int8 0/1 mask (M, N), which the NSD wire decode feeds to the
-  levels expand kernel. Elementwise, so any M works (the reference's tile
-  multiples come from its blocked grid).
+  (M, N/8) -> int8 0/1 mask (M, N). Elementwise, so any M works (the
+  reference's tile multiples come from its blocked grid). The NSD wire
+  decode does not call it: the wire expand kernel reads the bitmap itself,
+  as the reference's decode reads its jnp ``unpack_bitmap`` and not its
+  unpack kernel.
 """
 from __future__ import annotations
 

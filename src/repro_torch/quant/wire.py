@@ -16,14 +16,16 @@ Two routes compute the same bytes:
 
 * ``backend="plain"``: the reference's jnp path, a cumsum over the whole
   flat tensor (:func:`_compact` / :func:`_expand`);
-* ``backend="kernel"`` (the default): chunk-local, through the port's
-  kernels. The encode runs the NSD and pack kernels on the (n_chunks, 256)
-  view, whose pack bitmap *is* the wire bitmap, then the levels compact
-  kernel per chunk; the decode runs the bitmap-unpack and levels expand
-  kernels. The assembly between the chunks (a cumsum over the per-chunk
-  counts, one scatter, one gather) stays in plain torch ops, as the
-  reference keeps it in XLA ops outside its ``pallas_call``. Each kernel
-  wrapper takes its plain version for CPU tensors.
+* ``backend="kernel"`` (the default): the port's kernels. The encode runs
+  the NSD kernel on the (n_chunks, 256) view, then the wire compact kernel,
+  which writes levels, bitmap and nnz in one launch (the chunks' offsets
+  come from a prefix scan inside the kernel); the decode is one launch of
+  the wire expand kernel. The reference keeps the assembly between the
+  chunks in XLA ops outside its ``pallas_call``, which XLA fuses; eager
+  torch would launch each op, so the port's kernels take it in. Each kernel
+  wrapper takes its plain version for CPU tensors: the chunk-local
+  composition (a cumsum over the per-chunk counts, one scatter, one
+  gather), independent of the global route.
 
 Both routes are bit-exact against each other and against the reference's
 bytes for the same (x, noise, Delta).
@@ -131,7 +133,8 @@ def tile_mask_from_bitmap(bitmap: torch.Tensor, bm: int = 128, bk: int = 128
 
 
 # ---------------------------------------------------------------------------
-# levels compaction: the plain global route and the chunk-local kernel route
+# levels compaction: the plain global route (the kernel route is
+# repro_torch.kernels.levels' wire functions)
 # ---------------------------------------------------------------------------
 
 def _compact(k_flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,45 +155,6 @@ def _expand(levels: torch.Tensor, mask_flat: torch.Tensor) -> torch.Tensor:
     return torch.where(mask_flat, got, torch.zeros_like(got))
 
 
-def _chunk_starts(counts: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
-
-
-def _compact_chunks(k2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_compact` of ``k2d.reshape(-1)`` through the chunk-local
-    compact kernel and one scatter over the per-chunk counts."""
-    from repro_torch.kernels import levels as levels_k
-
-    n_chunks, chunk = k2d.shape
-    n = n_chunks * chunk
-    local, counts = levels_k.levels_compact(k2d)
-    i = torch.arange(chunk, dtype=torch.int32, device=k2d.device)
-    live = i[None, :] < counts[:, None]
-    tgt = torch.where(live, _chunk_starts(counts)[:, None] + i[None, :], n)
-    levels = torch.zeros(n + 1, dtype=torch.int8, device=k2d.device)
-    # every dropped slot receives a 0 (the kernel zero-fills past the count)
-    levels.scatter_(0, tgt.reshape(-1).to(torch.int64), local.reshape(-1))
-    return levels[:n], counts.sum(dtype=torch.int32)
-
-
-def _expand_chunks(levels: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
-    """:func:`_expand` through the bitmap-unpack kernel, one gather of each
-    chunk's levels over the per-chunk counts, and the expand kernel.
-    Returns int8 (n_chunks, chunk)."""
-    from repro_torch.kernels import levels as levels_k
-    from repro_torch.kernels import pack as pack_k
-
-    n = levels.shape[0]
-    mask = pack_k.bitmap_unpack(bitmap)
-    chunk = mask.shape[1]
-    counts = mask.sum(1, dtype=torch.int32)
-    i = torch.arange(chunk, dtype=torch.int32, device=levels.device)
-    idx = (_chunk_starts(counts)[:, None] + i[None, :]).clamp(max=n - 1)
-    got = levels[idx.to(torch.int64)]
-    local = torch.where(i[None, :] < counts[:, None], got, torch.zeros_like(got))
-    return levels_k.levels_expand(local, mask)
-
-
 def _check_backend(backend: str) -> bool:
     """True for the kernel route."""
     if backend not in BACKENDS:
@@ -204,24 +168,15 @@ def _chunk_view(flat: torch.Tensor) -> torch.Tensor:
     return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, DEFAULT_CHUNK)
 
 
-def _pack_view(k2d: torch.Tensor) -> torch.Tensor:
-    """The wire bitmap of (n_chunks, 256) int8 k through the pack kernel,
-    its rows zero-padded to the kernel's 128-row tile and sliced back."""
-    from repro_torch.kernels import pack as pack_k
-
-    kp = _pad2d(k2d, _ROWS, 1).contiguous()
-    bitmap, _, _ = pack_k.bitmap_pack_blocked(kp)
-    return bitmap[:k2d.shape[0]]
-
-
 def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype, *,
                  backend: str = "kernel") -> PackedNSD:
     """Pack precomputed NSD indices (int8/int32 k) and a scalar Delta."""
     kernel = _check_backend(backend)
     k2d = _chunk_view(k.to(torch.int8).reshape(-1))
     if kernel:
-        bitmap = _pack_view(k2d)
-        levels, nnz = _compact_chunks(k2d)
+        from repro_torch.kernels import levels as levels_k
+
+        levels, bitmap, nnz = levels_k.levels_compact_wire(k2d)
     else:
         bitmap = pack_bitmap(k2d)
         levels, nnz = _compact(k2d.reshape(-1))
@@ -240,8 +195,8 @@ def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float, *,
     over the flat (row-major) order of ``x``.
 
     The kernel route quantizes the (n_chunks, 256) view with the NSD kernel
-    (zero x and zero noise in the padding, so padded k is 0) and takes the
-    wire bitmap from the pack kernel on the same view.
+    (zero x and zero noise in the padding, so padded k is 0) and lays the
+    view out with one launch of the wire compact kernel.
     """
     from repro_torch.kernels import nsd_quant
 
@@ -267,7 +222,9 @@ def unpack_indices(p: PackedNSD, *, backend: str = "kernel") -> torch.Tensor:
     """The int8 k of a packed tensor, (n_chunks * chunk,) flat, padding
     included."""
     if _check_backend(backend):
-        return _expand_chunks(p.levels, p.bitmap).reshape(-1)
+        from repro_torch.kernels import levels as levels_k
+
+        return levels_k.levels_expand_wire(p.levels, p.bitmap).reshape(-1)
     return _expand(p.levels, unpack_bitmap(p.bitmap).reshape(-1))
 
 

@@ -179,23 +179,27 @@ def test_new_wrappers_reject_unaligned_or_strided_cuda_operands(cuda):
 
 
 def test_nsd_codec_kernel_route_matches_plain_route(cuda):
-    """The wire container through the kernels (NSD, pack, compact; unpack,
-    expand) is byte-identical to the plain global route on the card."""
+    """The wire container through the kernels (NSD and the wire compact;
+    the wire expand) is byte-identical to the plain global route on the
+    card."""
     x = torch.relu(_rand((3, 17, 17, 40), cuda, 9))
     u = torch.rand(x.shape, device=cuda) - 0.5
     build.reset_launches()
     p = quant.wire.pack_nsd(x, u, 1.0)
     assert (build.LAUNCHES["nsd_quant"], build.LAUNCHES["bitmap_pack"],
-            build.LAUNCHES["levels_compact"]) == (1, 1, 1)
+            build.LAUNCHES["levels_compact"]) == (1, 0, 1)
     want = quant.wire.pack_nsd(x, u, 1.0, backend="plain")
     for name in ("levels", "bitmap", "deltas", "nnz"):
         assert torch.equal(getattr(p, name), getattr(want, name)), name
     out = quant.wire.unpack_nsd(p)
-    assert (build.LAUNCHES["bitmap_unpack"], build.LAUNCHES["levels_expand"]) == (1, 1)
+    assert (build.LAUNCHES["bitmap_unpack"], build.LAUNCHES["levels_expand"]) == (0, 1)
     assert torch.equal(out, quant.wire.unpack_nsd(want, backend="plain"))
 
 
 def test_dense_nsd_residual_launches_each_kernel(cuda):
+    """One dithered layer with an nsd residual: the cotangent's NSD, pack
+    and two products, the residual's NSD and one wire compact in the
+    forward, one wire expand in the backward."""
     x = _rand((100, 200), cuda, 10).requires_grad_()
     w = (_rand((200, 72), cuda, 11) * 0.1).requires_grad_()
     ctx = DitherCtx(DitherPolicy(variant="kernel"), device=cuda,
@@ -203,11 +207,103 @@ def test_dense_nsd_residual_launches_each_kernel(cuda):
     build.reset_launches()
     dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"nsd_quant": 2, "bitmap_pack": 2,
-                              "bsp_matmul_int8": 2, "bitmap_unpack": 1,
+    assert build.LAUNCHES == {"nsd_quant": 2, "bitmap_pack": 1,
+                              "bsp_matmul_int8": 2, "bitmap_unpack": 0,
                               "levels_compact": 1, "levels_expand": 1,
                               "bsp_matmul_dequant": 0}
     assert torch.isfinite(w.grad).all()
+
+
+# The wire kernels: C chunks at three densities, c1's residual at batch 128
+# (8,192 chunks), a stream whose only non-zero lies in its last chunk, and
+# 2^18 chunks: 8,192 blocks, more than the card holds at once, so blocks
+# wait on tickets taken by blocks that are running.
+WIRE_CASES = ([(C, d) for C in (1, 3, 8, 9, 130, 8192) for d in (0.0, 0.2, 1.0)]
+              + [(130, "last chunk only"), (8192, "last chunk only"),
+                 (1 << 18, 0.6), (1 << 18, "last chunk only")])
+
+
+def _wire_input(C, density, cuda, seed):
+    if density == "last chunk only":
+        k = torch.zeros(C, 256, dtype=torch.int8, device=cuda)
+        k[-1, 200] = -3
+        return k
+    return _levels_input(C, density, cuda, seed)
+
+
+def _wire_round_trip(k):
+    """The wire kernels' outputs (levels, bitmap, nnz, decoded k), one
+    launch each way."""
+    before = dict(build.LAUNCHES)
+    lv, bitmap, nnz = levels.levels_compact_wire(k)
+    out = levels.levels_expand_wire(lv, bitmap)
+    assert build.LAUNCHES == {**before,
+                              "levels_compact": before["levels_compact"] + 1,
+                              "levels_expand": before["levels_expand"] + 1}
+    return lv, bitmap, nnz, out
+
+
+@pytest.mark.parametrize("C,density", WIRE_CASES, ids=str)
+def test_wire_kernels_match_plain(cuda, C, density):
+    k = _wire_input(C, density, cuda, C)
+    lv, bitmap, nnz, out = _wire_round_trip(k)
+    want = levels.levels_compact_wire_plain(k)
+    for got, w, what in zip((lv, bitmap, nnz), want, ("levels", "bitmap", "nnz")):
+        assert got.shape == w.shape and got.dtype == w.dtype, what
+        assert torch.equal(got, w), what
+    assert torch.equal(out, levels.levels_expand_wire_plain(lv, bitmap))
+    assert torch.equal(out, k)
+
+
+def test_wire_kernels_repeat_over_a_reused_workspace(cuda):
+    """The same bits on a second call, with a call of another chunk count
+    in between (the allocator hands the workspace back)."""
+    k = _wire_input(8192, 0.6, cuda, 12)
+    first = _wire_round_trip(k)
+    _wire_round_trip(_wire_input(9, 0.2, cuda, 13))
+    second = _wire_round_trip(k)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wire_kernels_replay_in_a_cuda_graph(cuda):
+    """Both wire kernels captured in one CUDA graph (the workspace's clear
+    is a node of it): each replay gives the eager bytes, also for new
+    data in the captured input."""
+    k = _wire_input(8192, 0.6, cuda, 14)
+    eager = _wire_round_trip(k)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _wire_round_trip(k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _wire_round_trip(k)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+    k.copy_(_wire_input(8192, 0.2, cuda, 15))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = levels.levels_compact_wire_plain(k)
+    for a, b in zip(captured[:3], want):
+        assert torch.equal(a, b)
+    assert torch.equal(captured[3], k)
+
+
+def test_wire_wrappers_reject_bad_cuda_operands(cuda):
+    k = torch.zeros(2 * 256 + 1, dtype=torch.int8, device=cuda)[1:].reshape(2, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        levels.levels_compact_wire(k)
+    lv = torch.zeros(512, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        levels.levels_expand_wire(lv, torch.zeros(2, 32, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        levels.levels_expand_wire(
+            lv, torch.zeros(32, 2, dtype=torch.uint8, device=cuda).t())
 
 
 # The split-K edges of both tile-skipping products, with A stored transposed

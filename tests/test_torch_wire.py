@@ -17,7 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.quant import wire as jwire  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, levels, pack  # noqa: E402
 from repro_torch.quant import wire  # noqa: E402
 
 S = 1.0
@@ -112,3 +112,42 @@ def test_unknown_backend_is_refused():
     assert p.bitmap.shape == (1, 32) and p.chunk == wire.DEFAULT_CHUNK
     with pytest.raises(ValueError, match="backend"):
         wire.unpack_nsd(p, backend="pallas")
+
+
+# C chunks at three densities, and a stream whose only non-zero lies in its
+# last chunk
+WIRE_CASES = ([(C, d) for C in (1, 3, 8, 9, 130) for d in (0.0, 0.2, 1.0)]
+              + [(130, "last chunk only")])
+_WIRE_WRAPPERS = ((levels, "levels_compact_wire"), (levels, "levels_expand_wire"),
+                  (levels, "levels_compact"), (levels, "levels_expand"),
+                  (pack, "bitmap_pack_blocked"), (pack, "bitmap_unpack"))
+
+
+@pytest.mark.parametrize("C,density", WIRE_CASES, ids=str)
+def test_kernel_route_is_one_wire_call_each_way(C, density, monkeypatch):
+    """The kernel route's encode is one call of the wire compact and its
+    decode one call of the wire expand, no other levels or bitmap kernel,
+    and the container is the reference's Pallas route's byte for byte."""
+    calls = {}
+    for mod, name in _WIRE_WRAPPERS:
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    rng = np.random.default_rng(C)
+    n = C * 256
+    if density == "last chunk only":
+        k = np.zeros(n, np.int8)
+        k[-3] = 9
+    else:
+        k = np.where(rng.random(n) < density, rng.integers(1, 128, n)
+                     * rng.choice([-1, 1], n), 0).astype(np.int8)
+    pt = wire.pack_indices(torch.from_numpy(k), torch.tensor(0.5), (n,),
+                           torch.float32)
+    assert calls == {"levels_compact_wire": 1}
+    pj = jwire.pack_indices(jnp.asarray(k), jnp.float32(0.5), (n,), jnp.float32,
+                            backend="pallas")
+    _same_container(pt, pj)
+    out = wire.unpack_indices(pt)
+    assert calls == {"levels_compact_wire": 1, "levels_expand_wire": 1}
+    np.testing.assert_array_equal(out.numpy(), k)
