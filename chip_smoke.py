@@ -6,10 +6,14 @@
 Phases (any failure exits non-zero and prints no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. hold the NSD, pack and int8 matmul kernels bit-exact against their
-     plain PyTorch versions at the padded shapes of VGG11 layers c1 and c5
-     at batch 128, plus edge cases (delta = 0, empty tiles, full and empty
-     masks);
+  3. hold the fused NSD kernel bit-exact against its plain PyTorch version
+     on both routes (the dither drawn inside from a stream key, and fed) at
+     the unpadded cotangents of VGG11 layers c0 (131,072 x 64), c1, c5 and
+     fc2 (128 x 10) at batch 128 and at delta = 0, its bitmap, counts and
+     mask against the pack's plain version on its k; the draw-only Philox
+     kernel against its plain version; the pack kernel at c0's padded k and
+     with an empty tile; the int8 matmul at c1 and c5 with full and empty
+     masks;
   3b. hold the levels compact and expand kernels (chunk-local, and the
      one-launch wire kernels that lay out a whole chunk stream: levels,
      bitmap and nnz; its decode) and the bitmap-unpack kernel bit for bit
@@ -23,8 +27,10 @@ Phases (any failure exits non-zero and prints no result):
      partial masks;
   4. train VGG11-CIFAR at full width, batch 128, 5 steps, variant=kernel,
      through ``repro_torch.train.classifier.train_classifier``; check the
-     loss is finite, the launch counts (per step: NSD 11, pack 11, bsp 21,
-     c0's dx being skipped because the images need no gradient), that no
+     loss is finite, the launch counts (per step: NSD 11, bsp 21, c0's dx
+     being skipped because the images need no gradient; pack and the draw
+     kernel 0: the NSD kernel draws the dither and writes the bitmap and
+     tile mask itself), that no
      structural fallback happened, that dither sparsity is within 8 points
      of the same steps run on the plain versions, and that step 1's
      gradients agree with the plain versions' (relative L2 <= 1e-5 per
@@ -32,9 +38,9 @@ Phases (any failure exits non-zero and prints no result):
   4b. the same training with ``memory="default=nsd"``: every dithered
      layer's input is NSD-encoded into the wire container in the forward
      and decoded in the backward. Check the loss is finite, the launch
-     counts (per step: NSD 22, pack 11, wire compact 11, wire expand 11,
-     bsp 21; the unpack kernel 0, since the wire expand reads the bitmap
-     itself), no fallback, ``residual_compression`` equal to the plain
+     counts (per step: NSD 22, wire compact 11, wire expand 11, bsp 21;
+     pack, unpack and the draw kernel 0), no fallback,
+     ``residual_compression`` equal to the plain
      versions' run (relative 1e-6), sparsity within 8 points of phase 4's
      run, step-1 gradients against the plain versions (relative L2 <=
      1e-5), and step-1 BatchNorm and bias gradients and dither telemetry
@@ -42,17 +48,23 @@ Phases (any failure exits non-zero and prints no result):
   4c. the f32-operand backward: ``ops.dithered_backward_matmuls(...,
      int8_operands=False)`` on every layer's captured (g, x, w, u) of one
      step, held to its plain versions and to the paper variant's f32
-     products within the dequant band, with its launches counted;
+     products within the dequant band, with its launches counted (NSD 11,
+     dequant 22);
+  4d. the paper variant (NSD in f32 ops, f32 products) for 5 steps: its
+     only kernel is the draw-only Philox kernel, 11 launches a step; loss
+     finite, step time printed;
   5. capture every kernel input of one step (for the NSD kernel its
      cotangent calls of the fp32 step and, apart, its calls in the nsd
      step's residual encode; for compact and expand the wire calls of the
-     nsd step; for unpack, which no path launches now, the bitmaps of
-     those decodes), hold each call against its plain version again (the
+     nsd step; for pack and unpack, which no path launches now, the fp32
+     step's k and the bitmaps of the nsd step's decodes; for the draw
+     kernel the fp32 step's cotangent shapes), hold each call against its
+     plain version again (the
      dequant product and the wire kernels also against a second launch of
      themselves, the wire kernels also against a CUDA-graph replay, bit for
      bit), log each matmul call's split-K count, and time kernel, plain
-     version and the library yardstick with CUDA events (the matmuls and
-     the wire kernels also by CUDA-graph replay; the chunk-local compact
+     version and the library yardstick with CUDA events (every kernel also
+     by CUDA-graph replay, but unpack; the chunk-local compact
      and expand on the same chunks on lines of their own), beside the
      least time the card could take (bytes over 3.35 TB/s, or operations
      over the peak rate of the units that do them); then break one step's
@@ -70,7 +82,9 @@ Phases (any failure exits non-zero and prints no result):
      (host clock around synchronised steps, median of 15 each) and print
      the nsd step's excess;
   6. print one JSON line naming the seven kernels (the NSD row carries its
-     residual-encode figures under ``nsd_residual_encode``);
+     residual-encode figures under ``nsd_residual_encode``, the draw-only
+     kernel of its source under ``philox_uniform``, and the bound of the
+     padded definition, 9 bytes a padded element, under ``old_bound_ms``);
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -93,15 +107,24 @@ FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core peak
 BATCH, STEPS, SEED = 128, 5, 0
 STEP_PAIRS = 15  # phase 5d: fp32 and nsd steps, taken in turns
-PER_STEP = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_int8": 21}
+# the kernel variant: one NSD launch a layer (the dither drawn inside, the
+# bitmap and tile mask written with k), two products but for c0's dx
+PER_STEP = {"nsd_quant": 11, "bitmap_pack": 0, "bsp_matmul_int8": 21,
+            "philox_uniform": 0}
 # memory="default=nsd": each of the 11 layers encodes its input (NSD, wire
 # compact) in the forward and decodes it (wire expand) in the backward
-NSD_PER_STEP = {"nsd_quant": 22, "bitmap_pack": 11, "bsp_matmul_int8": 21,
+NSD_PER_STEP = {"nsd_quant": 22, "bitmap_pack": 0, "bsp_matmul_int8": 21,
                 "levels_compact": 11, "bitmap_unpack": 0, "levels_expand": 11,
-                "bsp_matmul_dequant": 0}
-# the f32-operand backward of the 11 layers: one NSD and pack each, both
-# products on the dequant kernel
-F32_OPERAND_LAUNCHES = {"nsd_quant": 11, "bitmap_pack": 11, "bsp_matmul_dequant": 22}
+                "bsp_matmul_dequant": 0, "philox_uniform": 0}
+# the f32-operand backward of the 11 layers: one NSD each, both products on
+# the dequant kernel
+F32_OPERAND_LAUNCHES = {"nsd_quant": 11, "bsp_matmul_dequant": 22}
+# the paper variant: the unit draw of each layer, nothing else
+PAPER_PER_STEP = {"philox_uniform": 11}
+# the unpadded cotangents (T, N) of the fp32 step at batch 128, held on
+# both NSD routes in phase 3
+COTANGENTS = {"c0": (131072, 64), "c1": (32768, 128), "c5": (2048, 512),
+              "fc2": (128, 10)}
 MEMORY = "default=nsd"
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
@@ -182,7 +205,8 @@ def profile_step(torch, step_fn, card, label, steps=3):
         f"{sum(r[1] for r in rows)} device kernels launched ({card})")
     # a matmul's name also matches its split-K reduce kernel, listed after it;
     # "Memset" counts the wire kernels' workspace clears among others
-    for name in ("nsd_quant_kernel", "bitmap_pack_kernel", "bsp_int8_kernel",
+    for name in ("nsd_quant_kernel", "philox_uniform_kernel", "bitmap_pack_kernel",
+                 "bsp_int8_kernel",
                  "bsp_int8_kernel_reduce", "levels_compact_kernel",
                  "levels_compact_wire_kernel", "bitmap_unpack_kernel",
                  "levels_expand_kernel", "levels_expand_wire_kernel",
@@ -234,13 +258,14 @@ def main() -> int:
     from repro_torch.quant import wire
 
     # every wrapper, its module and its plain version
-    modules = {"nsd_quant": (nsd_quant, "nsd_quantize_blocked"),
+    modules = {"nsd_quant": (nsd_quant, "nsd_quantize"),
                "bitmap_pack": (pack, "bitmap_pack_blocked"),
                "bsp_matmul_int8": (bsp_matmul, "bsp_matmul_int8"),
                "bitmap_unpack": (pack, "bitmap_unpack"),
                "levels_compact": (levels, "levels_compact_wire"),
                "levels_expand": (levels, "levels_expand_wire"),
-               "bsp_matmul_dequant": (bsp_matmul, "bsp_matmul")}
+               "bsp_matmul_dequant": (bsp_matmul, "bsp_matmul"),
+               "philox_uniform": (nsd_quant, "philox_uniform")}
     kernel = {k: getattr(m, a) for k, (m, a) in modules.items()}
     plain = {k: getattr(m, a + "_plain") for k, (m, a) in modules.items()}
 
@@ -265,10 +290,13 @@ def main() -> int:
     build.library()
     log(f"phase 2: built the kernels in {time.perf_counter() - t0:.1f} s")
 
-    max_err = {k: 0.0 for k in KERNELS}
+    max_err = {k: 0.0 for k in modules}
 
     def same(kname, got, want, what):
         for g, w in zip(got, want):
+            if g is None or w is None:  # an output not asked for (the bitmap)
+                check(g is None and w is None, f"{kname} {what}: one output missing")
+                continue
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{kname} {what}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
             err = float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
@@ -294,20 +322,40 @@ def main() -> int:
     # -- phase 3 ----------------------------------------------------------
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    key = 0x9E3779B97F4A7C15
+    for name, (T, N) in COTANGENTS.items():
+        g = torch.randn(T, N, device=dev, generator=gen) * 1e-3
+        for s in (2.0, 0.0):
+            delta = (s * torch.std(g, correction=0)).reshape(())
+            nu = nsd_quant.philox_uniform_plain(key, (T, N), device=dev) * delta
+            what = f"{name} delta={'0' if s == 0 else 's*std'}"
+            got = nsd_quant.nsd_quantize(g, delta, key=key)
+            same("nsd_quant", got, nsd_quant.nsd_quantize_plain(g, delta, key=key),
+                 f"{what} key route")
+            fed = nsd_quant.nsd_quantize(g, delta, noise=nu)
+            same("nsd_quant", fed, nsd_quant.nsd_quantize_plain(g, delta, noise=nu),
+                 f"{what} fed route")
+            same("nsd_quant", fed, got, f"{what}: fed draw against the key")
+            same("nsd_quant", got[1:], pack.bitmap_pack_blocked_plain(got.k),
+                 f"{what}: bitmap, nnz, mask against the pack's")
+            check(not got.k[T:].any() and not got.k[:, N:].any(),
+                  f"nsd_quant {what}: non-zero padding")
+        same("philox_uniform", (nsd_quant.philox_uniform(key, (T, N), device=dev),),
+             (nsd_quant.philox_uniform_plain(key, (T, N), device=dev),), name)
+    # c0's padded k (the largest pack the path would run), and c1 and c5
+    # with an empty tile; the int8 matmul on c1's and c5's k
+    kc0 = nsd_quant.nsd_quantize(torch.randn(131072, 64, device=dev, generator=gen),
+                                 torch.tensor(2.0, device=dev), key=key).k
+    same("bitmap_pack", pack.bitmap_pack_blocked(kc0), pack.bitmap_pack_blocked_plain(kc0),
+         "c0")
+    del kc0
     # (T, K_in, N_out) padded to 128: c1 (16x16x64 -> 128), c5 (4x4x512 -> 512)
     for name, (T, K, N) in {"c1": (32768, 640, 128), "c5": (2048, 4608, 512)}.items():
         g = torch.randn(T, N, device=dev, generator=gen) * 1e-3
-        u = torch.rand(T, N, device=dev, generator=gen) - 0.5
         x = torch.randn(T, K, device=dev, generator=gen)
         w = torch.randn(K, N, device=dev, generator=gen)
-        for s in (2.0, 0.0):
-            delta = (s * torch.std(g, correction=0)).reshape(())
-            nu = u * delta
-            same("nsd_quant", nsd_quant.nsd_quantize_blocked(g, nu, delta),
-                 nsd_quant.nsd_quantize_blocked_plain(g, nu, delta),
-                 f"{name} delta={'0' if s == 0 else 's*std'}")
         delta = 2.0 * torch.std(g, correction=0)
-        k, _ = nsd_quant.nsd_quantize_blocked(g, u * delta, delta)
+        k = nsd_quant.nsd_quantize(g, delta, key=key).k
         k[:128, :128] = 0  # an empty tile
         same("bitmap_pack", pack.bitmap_pack_blocked(k),
              pack.bitmap_pack_blocked_plain(k), name)
@@ -326,7 +374,8 @@ def main() -> int:
                      f"{name} {'dW' if ta else 'dx'} mask={mname}")
     torch.cuda.synchronize()
     log(f"phase 3: kernels bit-exact against their plain versions "
-        f"(max abs err {max(max_err.values())})")
+        f"(max abs err {max(max_err.values())}); NSD on both routes at "
+        f"{', '.join(f'{n} {t}x{c}' for n, (t, c) in COTANGENTS.items())}")
 
     # -- phase 3b ---------------------------------------------------------
     def sparse_levels(C, density):
@@ -371,12 +420,14 @@ def main() -> int:
     for n in (1000, 2_097_152):  # not a chunk multiple; c1's residual size
         xr = torch.relu(torch.randn(n, device=dev, generator=gen))
         ur = torch.rand(n, device=dev, generator=gen) - 0.5
-        pk, pp = wire.pack_nsd(xr, ur, 1.0), wire.pack_nsd(xr, ur, 1.0, backend="plain")
-        for f in ("levels", "bitmap", "deltas", "nnz"):
-            check(torch.equal(getattr(pk, f), getattr(pp, f)),
-                  f"wire container n={n}: {f} differs from the plain route")
-        check(torch.equal(wire.unpack_nsd(pk), wire.unpack_nsd(pp, backend="plain")),
-              f"wire decode n={n} differs from the plain route")
+        for noise in (ur, 12345):  # fed, and the stream key's draw
+            pk = wire.pack_nsd(xr, noise, 1.0)
+            pp = wire.pack_nsd(xr, noise, 1.0, backend="plain")
+            for f in ("levels", "bitmap", "deltas", "nnz"):
+                check(torch.equal(getattr(pk, f), getattr(pp, f)),
+                      f"wire container n={n}: {f} differs from the plain route")
+            check(torch.equal(wire.unpack_nsd(pk), wire.unpack_nsd(pp, backend="plain")),
+                  f"wire decode n={n} differs from the plain route")
 
     # the dequant product at the c1 and c5 dx and dW shapes: (T, N, K_in)
     rels = []
@@ -400,7 +451,8 @@ def main() -> int:
     log(f"phase 3b: compact, expand (chunk-local and wire) and unpack bit-exact "
         f"against their plain versions (max abs err "
         f"{max(max_err[k] for k in ('levels_compact', 'levels_expand', 'bitmap_unpack'))}), "
-        f"wire container n=1000 and n=2097152 identical on both routes; dequant "
+        f"wire container n=1000 and n=2097152 identical on both routes (fed and "
+        f"key draws); dequant "
         f"within its band (worst relative L2 {max(rels):.3e}, max abs err "
         f"{max_err['bsp_matmul_dequant']:.3e})")
 
@@ -523,10 +575,11 @@ def main() -> int:
     captured = {}
     real_products = dithered._kernel_products
 
-    def capturing(g2d, x2d, w, u, pol, name, need_dx):
+    def capturing(g2d, x2d, w, noise, pol, name, need_dx):
+        # noise: the layer's stream key (an int)
         captured[name] = (g2d.detach().clone(), x2d.detach().clone(),
-                          w.detach().clone(), u.clone(), pol.s)
-        return real_products(g2d, x2d, w, u, pol, name, need_dx)
+                          w.detach().clone(), noise, pol.s)
+        return real_products(g2d, x2d, w, noise, pol, name, need_dx)
 
     dithered._kernel_products = capturing
     try:
@@ -550,7 +603,7 @@ def main() -> int:
                 for n, (g, x, w, u, s) in captured.items()}
         torch.cuda.synchronize()
     launches_f32 = dict(build.LAUNCHES)
-    for kname in KERNELS:
+    for kname in build.LAUNCHES:
         want = F32_OPERAND_LAUNCHES.get(kname, 0)
         check(launches_f32[kname] == want,
               f"f32-operand backward: {kname} {launches_f32[kname]} launches, want {want}")
@@ -577,8 +630,21 @@ def main() -> int:
         f"variant's f32 products {worst_paper:.3e}")
     del outs
 
+    # -- phase 4d: the paper variant (its unit draws on the Philox kernel) --
+    build.reset_launches()
+    res_paper = train_classifier(cfg, policy.replace(variant="paper"), steps=STEPS,
+                                 batch=BATCH, seed=SEED)
+    launches_paper = dict(build.LAUNCHES)
+    check(math.isfinite(res_paper["final_loss"]), f"loss {res_paper['final_loss']}")
+    for kname in build.LAUNCHES:
+        want = PAPER_PER_STEP.get(kname, 0) * STEPS
+        check(launches_paper[kname] == want,
+              f"paper variant: {kname} {launches_paper[kname]} launches, want {want}")
+    log(f"phase 4d: paper variant {json.dumps(res_paper)}; launches over {STEPS} "
+        f"steps { {k: v for k, v in launches_paper.items() if v} } ({card})")
+
     # -- phase 5 ----------------------------------------------------------
-    old = ("nsd_quant", "bitmap_pack", "bsp_matmul_int8")
+    old = ("nsd_quant", "bsp_matmul_int8")
     resid = ("levels_compact", "levels_expand")
     # the NSD calls of the nsd step's residual encode, on the (n_chunks,
     # 256) views: the cotangents' calls are those of ``old``
@@ -597,12 +663,20 @@ def main() -> int:
             step1(MEMORY)
     finally:
         wire.pack_nsd = real_pack_nsd
-    # no path launches the unpack kernel: it is held and timed on the
-    # bitmaps of the nsd step's decodes
+    # no path launches the pack and unpack kernels: they are held and timed
+    # on the fp32 step's k and on the bitmaps of the nsd step's decodes; the
+    # draw kernel on the fp32 step's keys and cotangent shapes
     calls["bitmap_unpack"] = [([bm], {}) for (_, bm), _ in calls["levels_expand"]]
-    for kname, n in list(PER_STEP.items()) + [(k, NSD_PER_STEP[k]) for k in resid] \
-            + [("bitmap_unpack", NSD_PER_STEP["levels_expand"]),
-               ("bsp_matmul_dequant", F32_OPERAND_LAUNCHES["bsp_matmul_dequant"])]:
+    calls["bitmap_pack"] = [([kernel["nsd_quant"](*a, **kw).k], {})
+                            for a, kw in calls["nsd_quant"]]
+    calls["philox_uniform"] = [([kw["key"], tuple(a[0].shape)], {"device": dev})
+                               for a, kw in calls["nsd_quant"]]
+    n_cot = PER_STEP["nsd_quant"]
+    for kname, n in {"nsd_quant": n_cot, "bsp_matmul_int8": PER_STEP["bsp_matmul_int8"],
+                     "bitmap_pack": n_cot, "philox_uniform": n_cot,
+                     **{k: NSD_PER_STEP[k] for k in resid},
+                     "bitmap_unpack": NSD_PER_STEP["levels_expand"],
+                     "bsp_matmul_dequant": F32_OPERAND_LAUNCHES["bsp_matmul_dequant"]}.items():
         check(len(calls[kname]) == n, f"captured {len(calls[kname])} {kname} calls")
     for kname, got in encode_calls.items():
         want = NSD_PER_STEP[kname] - PER_STEP[kname]
@@ -706,25 +780,43 @@ def main() -> int:
         """Check each recorded call against the plain version and sum the
         kernel, plain, library and bound times over the calls."""
         tot = dict(ms=0.0, plain_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
-                   local_ms=0.0, graph_ms=0.0)
+                   local_ms=0.0, graph_ms=0.0, old_bound_ms=0.0)
         have_library = kname in libraries
         for i, (args, kw) in enumerate(call_list):
             check_call(kname, args, kw, i)
             ms = time_ms(lambda: kernel[kname](*args, **kw))
             pms = time_ms(lambda: plain[kname](*args, **kw), launches=2, groups=3)
             lib = local = None
-            # the two matmuls and the wire kernels: their device time per
-            # call, from graph replays
+            # every kernel but unpack: its device time per call, from graph
+            # replays
             gms = (graph_ms(lambda: kernel[kname](*args, **kw))
-                   if kname in ("bsp_matmul_int8", "bsp_matmul_dequant") + resid
-                   else None)
+                   if kname != "bitmap_unpack" else None)
             if gms is not None:
                 tot["graph_ms"] += gms
             if kname == "nsd_quant":
-                M, N = args[0].shape
-                nbytes = M * N * (4 + 4 + 1) + (M // 128) * (N // 128) * 4 + 4
-                nops, rate = 5 * M * N, FP32_OPS_PER_S
-                shape = f"{M}x{N}"
+                # read x (and a fed nu) once over its live elements; write k,
+                # the bitmap (when asked) and the tile counts and mask over
+                # the 128-padded view
+                x_in = args[0]
+                fed = kw.get("noise") is not None
+                cols = kw.get("cols") or x_in.shape[-1]
+                n = x_in.numel()
+                rows = -(-n // cols)
+                Tp, Np = -(-rows // 128) * 128, -(-cols // 128) * 128
+                tiles = (Tp // 128) * (Np // 128)
+                nbytes = (n * 4 * (2 if fed else 1) + Tp * Np
+                          + (Tp * Np // 8 if kw.get("bitmap", True) else 0)
+                          + tiles * 8 + 4)
+                # the padded definition, for the kernel that took padded
+                # copies: x and nu read, k written over the padded shape,
+                # the counts
+                tot["old_bound_ms"] += (Tp * Np * 9 + tiles * 4 + 4) / HBM_BYTES_PER_S * 1e3
+                nops, rate = 5 * n, FP32_OPS_PER_S
+                shape = f"{rows}x{cols} ({'fed' if fed else 'key'})"
+            elif kname == "philox_uniform":
+                rows_u, cols_u = args[1]
+                nbytes, nops, rate = rows_u * cols_u * 4, 0, INT8_OPS_PER_S
+                shape = f"{rows_u}x{cols_u}"
             elif kname == "bitmap_pack":
                 M, N = args[0].shape
                 nbytes = M * N + M * N // 8 + 2 * (M // 128) * (N // 128) * 4
@@ -818,7 +910,10 @@ def main() -> int:
         log(f"  {kname}{label}: {len(call_list)} calls, {tot['ms']:.4f} ms, "
             + (f"device {tot['graph_ms']:.4f} ms in graph replay, " if tot["graph_ms"] else "")
             + f"bound "
-            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}), plain "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}"
+            + (f"; {tot['old_bound_ms']:.4f} ms by the padded definition"
+               if tot["old_bound_ms"] else "")
+            + f"), plain "
             f"{tot['plain_ms']:.4f} ms"
             + (f", library {tot['library_ms']:.4f} ms ({libraries[kname]})"
                if have_library else ", library none"))
@@ -880,23 +975,39 @@ def main() -> int:
                                       "library_ms")}}
         if tot["graph_ms"]:
             row["graph_ms"] = tot["graph_ms"]  # device time, no host dispatch
+        if tot["old_bound_ms"]:
+            row["old_bound_ms"] = tot["old_bound_ms"]
         if kname == "bitmap_unpack":
             row["note"] = ("no path launches it: the wire expand reads the bitmap "
                            "itself; held and timed on the nsd step's decode bitmaps")
+        if kname == "bitmap_pack":
+            row["note"] = ("no path launches it: the NSD kernel writes the bitmap, "
+                           "nnz and mask itself; held and timed on the fp32 step's k")
         if kname in encode_calls:
             # the same kernel's calls in the nsd step's residual encode, with
             # their launches over phase 4b's run
             enc = measure(kname, encode_calls[kname], " (nsd residual encode)")
             row["nsd_residual_encode"] = {
                 "launches": launches_nsd[kname] - launches[kname],
-                **{k: enc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+                **{k: enc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "graph_ms", "old_bound_ms")}}
+        if kname == "nsd_quant":
+            # the draw-only entry of the same source, on the fp32 step's
+            # cotangent shapes, with its launches over phase 4d's paper run
+            drw = measure("philox_uniform", calls["philox_uniform"])
+            row["philox_uniform"] = {
+                "launches": launches_paper["philox_uniform"],
+                "max_abs_err": max_err["philox_uniform"],
+                **{k: drw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "graph_ms")}}
         rows.append(row)
     torch.cuda.synchronize()
     log(f"phase 5: per-kernel times are sums over the launches of one "
         f"batch-{BATCH} step (the f32-operand backward's 22 products for the "
-        f"dequant kernel; the NSD and pack rows' cotangent calls of the fp32 "
-        f"step, the NSD row's residual-encode calls of the nsd step apart; the "
-        f"compact and expand rows the nsd step's wire calls); step time kernel "
+        f"dequant kernel; the NSD row's cotangent calls of the fp32 step, its "
+        f"residual-encode calls of the nsd step apart; the pack row the fp32 "
+        f"step's k; the compact and expand rows the nsd step's wire calls); "
+        f"paper variant {res_paper['ms_per_step']:.2f} ms; step time kernel "
         f"path {res['ms_per_step']:.2f} ms, "
         f"plain versions {res_plain['ms_per_step']:.2f} ms; with nsd residuals "
         f"{res_nsd['ms_per_step']:.2f} ms, plain versions "

@@ -13,20 +13,24 @@ The bias is added outside the autograd Function, so its gradient is exact.
 Variants (``DitherPolicy.variant``):
   off     plain backprop (no Function in the graph at all)
   paper   NSD in f32, both products in f32
-  kernel  fused NSD + bitmap pack + tile-skipping int8 products on the
-          CUDA kernels (``repro_torch.kernels.ops``); a convolution goes
-          through im2col (``F.unfold``), and dx folds back with ``F.fold``.
+  kernel  fused NSD (with the bitmap and tile mask) + tile-skipping int8
+          products on the CUDA kernels (``repro_torch.kernels.ops``); a
+          convolution goes through im2col (``F.unfold``), and dx folds back
+          with ``F.fold``.
 
-The noise of a layer is ``ctx.unit_noise(name, (T, N))`` for its 2-D
-cotangent. For a convolution the T rows run in the reference's NHWC order
-(b, h, w), so a fed reference draw lines up element for element.
+The noise of a layer is drawn for its 2-D cotangent (T, N): the kernel
+variant hands the NSD launch the layer's stream key
+(``ctx.cotangent_dither``), the paper variant draws the same numbers as a
+tensor (``ctx.unit_noise(name, (T, N))``). For a convolution the T rows run
+in the reference's NHWC order (b, h, w), so a fed reference draw lines up
+element for element.
 
 Residual memory (``repro_torch.memory``): the activation x that the
 weight-gradient product consumes is saved under the layer's residual mode
 (``DitherPolicy.residual``): the forward stores ``quant.encode(x)``, the
 backward decodes it. A convolution's x is encoded in the reference's NHWC
-order, so an ``nsd`` container and its noise draw
-(``ctx.resid_noise(name, (B, H, W, C))``) line up with the reference's, and
+order, so an ``nsd`` container and its noise draw (the stream of
+``ctx.resid_dither(name, (B, H, W, C))``) line up with the reference's, and
 is permuted back to NCHW after the decode. dx = g~ . W^T never reads x, so
 with any codec every cotangent, and so every BatchNorm and bias gradient,
 equals the fp32-residual run's; only dW moves. Mode ``remat`` saves nothing
@@ -62,11 +66,12 @@ def quantize_cotangent(g2d: torch.Tensor, u: torch.Tensor,
     return (k.to(torch.float32) * delta).to(g2d.dtype)
 
 
-def _kernel_products(g2d, x2d, w, u, pol: DitherPolicy, name: str,
+def _kernel_products(g2d, x2d, w, noise, pol: DitherPolicy, name: str,
                      need_dx: bool):
-    """Kernel-variant products; telemetry comes from the same k the
-    matmul kernels consume (sliced back to the live region)."""
-    q = ops.quantize_and_mask(g2d, u, pol.s)
+    """Kernel-variant products from the layer's stream key or fed unit draw
+    (``noise``); telemetry comes from the same k the matmul kernels consume
+    (sliced back to the live region)."""
+    q = ops.quantize_and_mask(g2d, noise, pol.s)
     if pol.collect_stats:
         T, N = g2d.shape
         metrics.emit(name, nsd.quant_stats(q.k[:T, :N], q.delta))
@@ -87,7 +92,7 @@ def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
         enc = x
     else:
         xr = x.permute(0, 2, 3, 1).contiguous() if conv else x  # NHWC
-        noise = (dctx.resid_noise(name, xr.shape) if quant.needs_noise(mode)
+        noise = (dctx.resid_dither(name, xr.shape) if quant.needs_noise(mode)
                  else None)
         enc = quant.encode(mode, xr, noise)
     if pol.collect_stats:
@@ -153,11 +158,13 @@ class _DitheredDense(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         x2d = x.reshape(-1, x.shape[-1])
         g2d = g.reshape(-1, g.shape[-1])
-        u = ctx.dctx.unit_noise(name, g2d.shape)
         if pol.variant == VARIANT_KERNEL:
-            dx2d, dw = _kernel_products(g2d, x2d, w, u, pol, name, need_dx)
+            dx2d, dw = _kernel_products(
+                g2d, x2d, w, ctx.dctx.cotangent_dither(name, g2d.shape), pol,
+                name, need_dx)
         else:
-            gq = quantize_cotangent(g2d, u, pol, name)
+            gq = quantize_cotangent(
+                g2d, ctx.dctx.unit_noise(name, g2d.shape), pol, name)
             dx2d = gq @ w.t() if need_dx else None
             dw = x2d.t() @ gq
         dx = dx2d.reshape(x.shape) if need_dx else None
@@ -181,7 +188,6 @@ class _DitheredConv2d(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         B, Co, Ho, Wo = g.shape
         g2d = g.permute(0, 2, 3, 1).reshape(-1, Co)  # rows (b, h, w): NHWC
-        u = ctx.dctx.unit_noise(name, g2d.shape)
         dx = None
         if pol.variant == VARIANT_KERNEL and groups == 1:
             kh, kw = w.shape[2:]
@@ -190,8 +196,9 @@ class _DitheredConv2d(torch.autograd.Function):
             kk, L = cols.shape[1:]
             cols2d = cols.transpose(1, 2).reshape(B * L, kk)
             w_mat = w.reshape(Co, kk).t()
-            dcols2d, dw_mat = _kernel_products(g2d, cols2d, w_mat, u, pol,
-                                               name, need_dx)
+            dcols2d, dw_mat = _kernel_products(
+                g2d, cols2d, w_mat, ctx.dctx.cotangent_dither(name, g2d.shape),
+                pol, name, need_dx)
             if need_dx:
                 dx = F.fold(dcols2d.reshape(B, L, kk).transpose(1, 2),
                             x.shape[2:], (kh, kw), dilation, padding, stride)
@@ -199,7 +206,8 @@ class _DitheredConv2d(torch.autograd.Function):
         else:
             if pol.variant == VARIANT_KERNEL:
                 ops.note_fallback("conv:groups", name)
-            gq = quantize_cotangent(g2d, u, pol, name)
+            gq = quantize_cotangent(g2d, ctx.dctx.unit_noise(name, g2d.shape),
+                                    pol, name)
             gq = gq.reshape(B, Ho, Wo, Co).permute(0, 3, 1, 2)
             if need_dx:
                 dx = torch.nn.grad.conv2d_input(x.shape, w, gq, stride,

@@ -3,9 +3,13 @@
     x_tilde = Delta * floor((x + nu) / Delta + 1/2)
     nu ~ U(-Delta/2, Delta/2),   Delta = s * std(x)   (per tensor, per layer)
 
-Counterpart of ``repro.core.nsd``. The dither noise enters as a unit draw
-``u ~ U(-1/2, 1/2)`` that the caller supplies (``DitherCtx.unit_noise``), so
-tests can feed the reference's exact draw. All arithmetic is f32.
+Counterpart of ``repro.core.nsd``. Here the dither noise enters as a unit
+draw ``u ~ U(-1/2, 1/2)`` that the caller supplies: the paper variant's
+``DitherCtx.unit_noise`` (a Philox draw from the layer's stream key), or the
+reference's exact draw that a test feeds. The kernel variant never forms u:
+its NSD launch (``repro_torch.kernels.nsd_quant``) draws the same numbers
+from the key inside, and takes ``dither_noise``'s nu only on the fed route.
+All arithmetic is f32.
 """
 from __future__ import annotations
 

@@ -6,34 +6,43 @@ Counterpart of ``repro.core.policy`` for the variants this port has so far:
 * ``paper``  NSD on the pre-activation gradient, products in f32;
 * ``kernel`` NSD + tile-skipping int8 products on the CUDA kernels.
 
-Noise seeding. ``jax.random``'s ``fold_in`` chain cannot be reproduced in
-torch, so each (seed, step, worker, layer) gets its own 63-bit seed from a
+Noise. ``jax.random``'s ``fold_in`` chain cannot be reproduced in torch,
+so each (seed, step, worker, layer) gets its own 63-bit stream key from a
 splitmix64 chain over ``seed``, ``step``, ``worker`` and the layer's
-``name_salt`` (a crc32 of its name, as in the reference), and one
-``torch.Generator`` seeded with it draws the layer's unit noise. Draws are
-therefore independent across layers, steps and data-parallel workers (the
-condition of the paper's averaging argument) and reproducible on one device
-type. ``DitherCtx.unit_noise`` is the seam through which tests feed the
-reference's own draw instead.
+``name_salt`` (a crc32 of its name, as in the reference), and the unit draw
+is Philox4x32-10 under that key (see :class:`DitherCtx`). Draws are
+independent across layers, steps and data-parallel workers (the condition of
+the paper's averaging argument) and identical on the CPU and the card.
+
+Fed noise. Tests hand the port the reference's own draw by overriding
+``unit_noise`` (and ``resid_noise``) in a subclass. That override is the
+one switch: :meth:`DitherCtx.cotangent_dither` and
+:meth:`DitherCtx.resid_dither`, which the ops call, return the stream key
+when the class keeps the base method and the overriding method's tensor
+otherwise, and a tensor takes the NSD kernel's fed-noise route.
 
 Residual memory. ``DitherCtx.memory`` (a ``repro_torch.memory``
 ``MemoryPolicy``) picks each dithered layer's residual mode, which
 :meth:`DitherCtx.resolve` stamps onto the layer's resolved policy
 (``DitherPolicy.residual``), as the reference's ``resolve`` stamps it onto
-its static spec. The ``nsd`` residual encode draws its own noise,
-``DitherCtx.resid_noise``: a second stream per layer, the layer's seed
-mixed once more with ``RESID_SALT``, independent of the cotangent's.
+its static spec. The ``nsd`` residual encode draws from a second stream per
+layer, :meth:`DitherCtx.resid_key`: the layer's key mixed once more with
+``RESID_SALT``, independent of the cotangent's; its unit draw,
+:meth:`DitherCtx.resid_noise`, runs over the wire's (chunks, 256) view of
+the residual's flat order.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import nsd_quant
 from repro_torch.quant.codecs import MODE_FP32, RESID_SALT, validate_mode
+from repro_torch.quant.wire import DEFAULT_CHUNK
 
 VARIANT_OFF = "off"
 VARIANT_PAPER = "paper"
@@ -89,7 +98,7 @@ def _splitmix64(z: int) -> int:
 
 
 def layer_seed(seed: int, step: int, worker: int, name: str) -> int:
-    """The 63-bit generator seed of one (seed, step, worker, layer)."""
+    """The 63-bit stream key of one (seed, step, worker, layer)."""
     h = _splitmix64(seed & _MASK64)
     for v in (step, worker, name_salt(name)):
         h = _splitmix64(h ^ (v & _MASK64))
@@ -98,7 +107,18 @@ def layer_seed(seed: int, step: int, worker: int, name: str) -> int:
 
 @dataclasses.dataclass
 class DitherCtx:
-    """Per-step dither state: the policy plus what seeds the noise."""
+    """Per-step dither state: the policy plus what seeds the noise.
+
+    The draw: layer ``name``'s stream key is :meth:`cotangent_key` (its
+    residual encode's, :meth:`resid_key`). Element (r, c) of the 2-D view
+    (rows, cols) of a drawn tensor takes word c % 4 of
+    philox4x32_10(counter (c // 4, r, 0, 0), key (key & 0xffffffff,
+    key >> 32)) as u = (word >> 8) * 2^-24 - 1/2, exact in f32 and in
+    [-1/2, 1/2). The kernel variant never materialises u: its NSD launch
+    gets the key and draws inside (``repro_torch.kernels.nsd_quant``).
+    :meth:`unit_noise` and :meth:`resid_noise` return the same numbers as a
+    tensor, element for element what the launch draws from that key.
+    """
 
     policy: DitherPolicy
     seed: int = 0
@@ -123,27 +143,49 @@ class DitherCtx:
                 return self.policy.replace(residual=mode)
         return self.policy
 
-    def _uniform(self, seed: int, shape) -> torch.Tensor:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return torch.rand(tuple(shape), generator=gen, device=self.device,
-                          dtype=torch.float32) - 0.5
+    def cotangent_key(self, name: str) -> int:
+        """Layer ``name``'s stream key for its cotangent's dither."""
+        return layer_seed(self.seed, self.step, self.worker, name)
+
+    def resid_key(self, name: str) -> int:
+        """Layer ``name``'s stream key for its residual encode: the
+        cotangent key mixed with ``RESID_SALT``."""
+        return _splitmix64(self.cotangent_key(name) ^ RESID_SALT) >> 1
 
     def unit_noise(self, name: str, shape) -> torch.Tensor:
-        """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``.
+        """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``: the
+        Philox draw of :meth:`cotangent_key` over the (rows, shape[-1])
+        view, the one the NSD kernel takes from that key.
 
         The shape is that of the layer's 2-D cotangent (T, N), rows in the
         reference's NHWC order for a convolution.
         """
-        return self._uniform(layer_seed(self.seed, self.step, self.worker,
-                                        name), shape)
+        return nsd_quant.philox_uniform(self.cotangent_key(name), shape,
+                                        device=self.device)
 
     def resid_noise(self, name: str, shape) -> torch.Tensor:
         """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``'s residual
-        encode: the stream salted with ``RESID_SALT``.
+        encode: the Philox draw of :meth:`resid_key` over the flat order
+        viewed as rows of ``DEFAULT_CHUNK`` (the wire's chunks), the one the
+        encode's NSD launch takes from that key.
 
         The shape is that of the residual in the reference's layout (NHWC
         for a convolution's input).
         """
-        seed = layer_seed(self.seed, self.step, self.worker, name)
-        return self._uniform(_splitmix64(seed ^ RESID_SALT) >> 1, shape)
+        return nsd_quant.philox_uniform(self.resid_key(name), shape,
+                                        cols=DEFAULT_CHUNK, device=self.device)
+
+    def cotangent_dither(self, name: str, shape) -> Union[int, torch.Tensor]:
+        """What the kernel variant's NSD launch of layer ``name`` dithers
+        with: the stream key, or, when a subclass overrides
+        :meth:`unit_noise` (fed noise), that method's tensor."""
+        if type(self).unit_noise is DitherCtx.unit_noise:
+            return self.cotangent_key(name)
+        return self.unit_noise(name, shape)
+
+    def resid_dither(self, name: str, shape) -> Union[int, torch.Tensor]:
+        """What layer ``name``'s residual encode dithers with: the stream
+        key, or an overriding :meth:`resid_noise`'s tensor."""
+        if type(self).resid_noise is DitherCtx.resid_noise:
+            return self.resid_key(name)
+        return self.resid_noise(name, shape)

@@ -35,11 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one exactly where its kernel was launched, never on the CPU path.
 LAUNCHES = {"nsd_quant": 0, "bitmap_pack": 0, "bsp_matmul_int8": 0,
             "bitmap_unpack": 0, "levels_compact": 0, "levels_expand": 0,
-            "bsp_matmul_dequant": 0}
+            "bsp_matmul_dequant": 0, "philox_uniform": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 _SIGNATURES = {
-    "nsd_quant_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "nsd_quant_launch": (_P, _P, _U64, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "philox_uniform_launch": (_U64, _P, _I, _I, _P),
     "bitmap_pack_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bsp_matmul_int8_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bitmap_unpack_launch": (_P, _P, _I, _P),

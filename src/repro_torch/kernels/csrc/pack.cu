@@ -7,14 +7,21 @@
 //     bitmap (M, N/8) uint8   LSB first: bit j of byte b is element 8b + j
 //     nnz    (M/bm, N/bn)     popcount of the tile's bitmap words
 //     mask   (M/bm, N/bn)     1 where the tile has any bit set
+// The training step does not run it: the NSD kernel writes the same three
+// from its registers (csrc/nsd_quant.cu). It serves NSD indices that are
+// already at hand (kernels/ops.py::quantized_from_indices).
 //
-// Bound on the H100: memory (1 byte read per element, 1/8 byte written).
-// The design needs no layout trick: one __ballot_sync over 32 consecutive
-// elements of a row yields one 32-bit word whose little-endian bytes are
-// exactly the wire bytes, so lane 0 stores it as is. nnz and mask come from
-// __popc of the same words, summed per warp and then in shared memory; one
-// block owns one tile, so there are no atomics and the result is
-// deterministic. (The reference's transposed tiles and sublane rolls exist
+// Bound on the H100: memory (1 byte read per element, 1/8 byte written). The
+// design streams k with 16-byte loads: each thread takes 16 consecutive
+// bytes of a tile row, and four such loads (bytes 16u of units u, u + 256,
+// u + 512, u + 768 of a 128 x 128 tile) are in flight before the first is
+// used. Each 4-byte word becomes a 4-bit occupancy with __vcmpne4 and one
+// multiply that gathers the bytes' flags, so a thread holds 16 bits; the two
+// lanes of a pair hold the two halves of one 32-bit wire word (32 bytes of
+// k), which one xor-shuffle joins and the even lane stores. nnz and mask come
+// from __popc of the same bits, summed per warp and then in shared memory;
+// one block owns one tile, so each has one writer, no atomics, and the result
+// is deterministic. (The reference's transposed tiles and sublane rolls exist
 // only to get past Mosaic and are not carried over.)
 //
 // Unpack replaces: src/repro/kernels/pack/pack.py::_unpack_kernel, called by
@@ -31,30 +38,53 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+constexpr int kPackLoads = 4;  // 16-byte loads a thread keeps in flight
+
+// 4 occupancy bits of a word of 4 int8: bit j set where byte j is non-zero.
+// __vcmpne4 gives 0xff per non-zero byte; masked to 1 << j in byte j, the
+// multiply by 0x01010101 sums the four bytes into the top byte.
+__device__ __forceinline__ uint32_t nibble(uint32_t w) {
+  return ((__vcmpne4(w, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
 __global__ void __launch_bounds__(kThreads)
 bitmap_pack_kernel(const int8_t* __restrict__ k, uint32_t* __restrict__ words,
                    int32_t* __restrict__ nnz, int32_t* __restrict__ mask,
                    int N, int bm, int bn) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tile_words_per_row = bn / 32;
-  const int tile_words = bm * tile_words_per_row;
-  const int row_words = N / 32;
+  const int units_per_row = bn / 16;  // even: bn % 32 == 0
+  const int units = bm * units_per_row;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * bm;
-  const int word0 = blockIdx.x * tile_words_per_row;
+  const size_t col0 = static_cast<size_t>(blockIdx.x) * bn;
 
   int count = 0;
-  // w depends only on the warp, so every lane of a warp takes part in each ballot
-  for (int w = warp; w < tile_words; w += kWarps) {
-    const size_t r = row0 + w / tile_words_per_row;
-    const int wc = word0 + w % tile_words_per_row;
-    const int8_t v = k[r * N + static_cast<size_t>(wc) * 32 + lane];
-    const uint32_t bits = __ballot_sync(0xffffffffu, v != 0);
-    if (lane == 0) {
-      words[r * row_words + wc] = bits;
-      count += __popc(bits);
+  // units are even in number and a thread's parity is its units', so both
+  // lanes of a pair are live or dead together and the shuffle sees both
+  for (int base = 0; base < units; base += kThreads * kPackLoads) {
+    uint4 v[kPackLoads];
+#pragma unroll
+    for (int i = 0; i < kPackLoads; ++i) {
+      const int u = base + i * kThreads + threadIdx.x;
+      v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (u < units)
+        v[i] = __ldg(reinterpret_cast<const uint4*>(
+            k + (row0 + u / units_per_row) * N + col0 + 16 * (u % units_per_row)));
+    }
+#pragma unroll
+    for (int i = 0; i < kPackLoads; ++i) {
+      const int u = base + i * kThreads + threadIdx.x;
+      const uint32_t half = nibble(v[i].x) | nibble(v[i].y) << 4 |
+                            nibble(v[i].z) << 8 | nibble(v[i].w) << 12;
+      count += __popc(half);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, half, 1);
+      if ((lane & 1) == 0 && u < units) {
+        const size_t off = (row0 + u / units_per_row) * N + col0 + 16 * (u % units_per_row);
+        words[off >> 5] = half | other << 16;
+      }
     }
   }
 
+  for (int s = 16; s > 0; s >>= 1) count += __shfl_down_sync(0xffffffffu, count, s);
   __shared__ int warp_counts[kWarps];
   if (lane == 0) warp_counts[warp] = count;
   __syncthreads();
@@ -83,9 +113,9 @@ bitmap_unpack_kernel(const uint8_t* __restrict__ bitmap, uint2* __restrict__ mas
 
 }  // namespace
 
-// k: (M, N) int8; bitmap: (M, N/8) uint8 written as 32-bit words (4-byte
-// aligned, N % 32 == 0); nnz, mask: (M/bm, N/bn) int32. M % bm == 0,
-// N % bn == 0, bn % 32 == 0 (checked by the Python wrapper).
+// k: (M, N) int8, 16-byte aligned; bitmap: (M, N/8) uint8 written as 32-bit
+// words (4-byte aligned, N % 32 == 0); nnz, mask: (M/bm, N/bn) int32.
+// M % bm == 0, N % bn == 0, bn % 32 == 0 (checked by the Python wrapper).
 extern "C" int bitmap_pack_launch(const int8_t* k, uint8_t* bitmap,
                                   int32_t* nnz, int32_t* mask, int M, int N,
                                   int bm, int bn, cudaStream_t stream) {

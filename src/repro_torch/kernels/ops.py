@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.ops``. For y = x @ w with cotangent g:
 
-    fused NSD kernel  ->  int8 k + per-tile nnz          (one pass over g)
-    pack kernel       ->  uint8 occupancy bitmap + the tile mask, derived
-                          from the bitmap's ballot words
+    fused NSD kernel  ->  int8 k, the uint8 occupancy bitmap, per-tile nnz
+                          and the tile mask, in one pass over g as it
+                          stands (the dither drawn inside from the layer's
+                          Philox stream key, or fed)
     bsp kernel x2     ->  dx = (k . w_q^T) * delta * s_w      (mask)
                           dW = (k^T . x_q)^T * delta * s_x    (mask, A read
                                                                transposed)
@@ -18,8 +19,10 @@ the dequant kernel against the f32 operands (the reference's
                           dW = (k^T . x)^T * delta        (mask, A read
                                                            transposed)
 
-Operands are zero-padded to 128-multiples; padded elements quantize to
-k == 0, so padding tiles read 0 in the mask and are skipped. Each wrapper
+k is written over the 128-padded shape, zeros in the padding, so padding
+tiles read 0 in the mask and are skipped; the matmuls' other operands are
+zero-padded to 128-multiples. The reference's pack kernel runs only for
+indices already at hand (:func:`quantized_from_indices`). Each wrapper
 takes its plain version for CPU tensors and launches its kernel for CUDA
 tensors. ``LAUNCHES`` counts the kernel launches per wrapper;
 ``KERNEL_FALLBACKS`` counts structural fallbacks (a grouped convolution),
@@ -27,7 +30,7 @@ which are never silent.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,33 +59,34 @@ def _pad_to(x: torch.Tensor, m: int, n: int) -> torch.Tensor:
 class QuantizedGrad(NamedTuple):
     """A pre-activation gradient after the fused NSD pass, tile-mask ready.
 
-    ``k`` is zero-padded to ``BLOCK`` multiples; ``nnz`` is the NSD kernel's
-    per-tile count; ``bitmap`` the packed occupancy; ``mask`` the tile mask
-    the matmuls consume, derived from ``bitmap``; ``shape`` the unpadded
-    (T, N).
+    ``k`` is zero-padded to ``BLOCK`` multiples; ``nnz`` the per-tile count;
+    ``bitmap`` the packed occupancy; ``mask`` the tile mask the matmuls
+    consume (nnz > 0, as the reference derives it from the bitmap);
+    ``shape`` the unpadded (T, N).
     """
 
     k: torch.Tensor  # (Tp, Np) int8
     delta: torch.Tensor  # 0-d f32
-    nnz: torch.Tensor  # (Tp/BLOCK, Np/BLOCK) int32, from the NSD kernel
+    nnz: torch.Tensor  # (Tp/BLOCK, Np/BLOCK) int32
     bitmap: torch.Tensor  # (Tp, Np/8) uint8
-    mask: torch.Tensor  # (Tp/BLOCK, Np/BLOCK) int32, from the bitmap
+    mask: torch.Tensor  # (Tp/BLOCK, Np/BLOCK) int32
     shape: Tuple[int, int]
 
 
-def quantize_and_mask(g: torch.Tensor, u: torch.Tensor, s: float
-                      ) -> QuantizedGrad:
-    """NSD-quantize g (T, N) with unit noise u (T, N), then pack its bitmap
-    and tile mask: one NSD kernel and one pack kernel."""
+def quantize_and_mask(g: torch.Tensor, noise: Union[int, torch.Tensor],
+                      s: float) -> QuantizedGrad:
+    """NSD-quantize g (T, N) and lay out its bitmap and tile mask: Delta,
+    then one NSD launch. ``noise`` is the layer's Philox stream key (an int,
+    ``DitherCtx.cotangent_key``: the kernel draws u itself) or a fed unit
+    draw u (T, N)."""
     T, N = g.shape
+    g = g.to(torch.float32).contiguous()
     delta = nsd.compute_delta(g, s)
-    noise = nsd.dither_noise(u, delta)
-    k, nnz = nsd_quant.nsd_quantize_blocked(
-        _pad_to(g.to(torch.float32), BLOCK, BLOCK), _pad_to(noise, BLOCK, BLOCK),
-        delta, bm=BLOCK, bn=BLOCK)
-    bitmap, _, mask = pack.bitmap_pack_blocked(k, bm=BLOCK, bn=BLOCK)
-    return QuantizedGrad(k=k, delta=delta, nnz=nnz, bitmap=bitmap, mask=mask,
-                         shape=(T, N))
+    route = ({"noise": nsd.dither_noise(noise, delta)}
+             if isinstance(noise, torch.Tensor) else {"key": noise})
+    q = nsd_quant.nsd_quantize(g, delta, **route)
+    return QuantizedGrad(k=q.k, delta=delta, nnz=q.nnz, bitmap=q.bitmap,
+                         mask=q.mask, shape=(T, N))
 
 
 def quantized_from_indices(k: torch.Tensor, delta: torch.Tensor
@@ -136,9 +140,10 @@ def bsp_backward_from_quantized(q: QuantizedGrad, x: torch.Tensor,
 
 
 def dithered_backward_matmuls(g: torch.Tensor, x: torch.Tensor,
-                              w: torch.Tensor, u: torch.Tensor, s: float, *,
-                              int8_operands: bool = True):
+                              w: torch.Tensor, noise: Union[int, torch.Tensor],
+                              s: float, *, int8_operands: bool = True):
     """The kernel-path backward of y = x @ w for cotangent g (T, N), inputs
-    x (T, K), w (K, N) and unit noise u (T, N): (dx, dW)."""
-    return bsp_backward_from_quantized(quantize_and_mask(g, u, s), x, w,
+    x (T, K), w (K, N) and a stream key or unit draw u (T, N)
+    (:func:`quantize_and_mask`): (dx, dW)."""
+    return bsp_backward_from_quantized(quantize_and_mask(g, noise, s), x, w,
                                        int8_operands=int8_operands)

@@ -6,7 +6,9 @@ Counterpart of ``repro.kernels.pack``:
 * ``bitmap_pack_blocked``, fused with the tile reduction of
   ``repro.quant.wire`` that derives the backward matmul's tile mask from
   the packed bitmap: from int8 k (M, N) one pass gives the LSB-first bitmap
-  (M, N/8), the per-tile nnz and the tile mask;
+  (M, N/8), the per-tile nnz and the tile mask. The training step does not
+  call it (the NSD kernel writes all three with k); it serves indices
+  already at hand (``kernels.ops.quantized_from_indices``);
 * ``bitmap_unpack`` (the reference's ``bitmap_unpack_blocked``): bitmap
   (M, N/8) -> int8 0/1 mask (M, N). Elementwise, so any M works (the
   reference's tile multiples come from its blocked grid). The NSD wire

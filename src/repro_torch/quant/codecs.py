@@ -21,7 +21,7 @@ the ``int8`` rows are its channel rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -166,8 +166,8 @@ class NsdCodec(Codec):
 
     def encode(self, spec, x, noise):
         if noise is None:
-            raise ValueError("nsd encode needs a unit noise draw (dithered "
-                             "codec)")
+            raise ValueError("nsd encode needs a stream key or a unit noise "
+                             "draw (dithered codec)")
         return wire.pack_nsd(x, noise, spec.param)
 
     def decode(self, spec, enc):
@@ -218,12 +218,14 @@ def validate_mode(mode: str) -> str:
 
 
 def needs_noise(mode: str) -> bool:
-    """Whether :func:`encode` under ``mode`` needs a unit noise draw."""
+    """Whether :func:`encode` under ``mode`` needs a stream key or unit draw."""
     return get_codec(parse_spec(mode).codec).needs_noise
 
 
-def encode(mode: str, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
-    """Encode under a spec string; fp32/remat return ``x`` itself."""
+def encode(mode: str, x: torch.Tensor,
+           noise: Optional[Union[int, torch.Tensor]] = None):
+    """Encode under a spec string; fp32/remat return ``x`` itself. ``noise``
+    is a stream key or a unit draw (see ``repro_torch.quant.registry``)."""
     spec = parse_spec(mode)
     if spec.codec in _IDENTITY:
         return x
@@ -239,7 +241,7 @@ def decode(mode: str, enc) -> torch.Tensor:
 
 
 def quantize(mode: str, x: torch.Tensor,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             noise: Optional[Union[int, torch.Tensor]] = None) -> torch.Tensor:
     """decode(encode(x)): the fake-quant round trip."""
     return decode(mode, encode(mode, x, noise))
 

@@ -10,10 +10,13 @@ capability of one quantization format:
     capacity_bytes(spec, enc)           static bytes of a concrete encoding
     measured_bytes(spec, enc)           occupancy-aware bytes (wire figure)
 
-Where the reference passes an RNG key, the port passes ``noise``: a unit
-draw u ~ U(-1/2, 1/2) over the tensor's shape (``DitherCtx.resid_noise``),
-the seam through which tests feed the reference's own draw. Codecs with
-``needs_noise = False`` ignore it.
+Where the reference passes an RNG key, the port passes ``noise``: a
+Philox stream key (an int, ``DitherCtx.resid_key``; the nsd codec's kernel
+route draws u ~ U(-1/2, 1/2) inside its NSD launch, its plain route draws
+the same numbers in torch), or a unit draw tensor over the tensor's shape,
+the seam through which tests feed the reference's own draw
+(``DitherCtx.resid_noise``). Codecs with ``needs_noise = False`` ignore
+it.
 """
 from __future__ import annotations
 
@@ -58,7 +61,7 @@ class Codec:
         raise NotImplementedError
 
     def encode(self, spec: QuantSpec, x: torch.Tensor,
-               noise: Optional[torch.Tensor]):
+               noise: Optional[Union[int, torch.Tensor]]):
         raise NotImplementedError
 
     def decode(self, spec: QuantSpec, enc) -> torch.Tensor:

@@ -17,7 +17,8 @@ Two routes compute the same bytes:
 * ``backend="plain"``: the reference's jnp path, a cumsum over the whole
   flat tensor (:func:`_compact` / :func:`_expand`);
 * ``backend="kernel"`` (the default): the port's kernels. The encode runs
-  the NSD kernel on the (n_chunks, 256) view, then the wire compact kernel,
+  the NSD kernel on x as it stands, viewed as (n_chunks, 256) (the dither
+  drawn inside from a stream key, or fed), then the wire compact kernel,
   which writes levels, bitmap and nnz in one launch (the chunks' offsets
   come from a prefix scan inside the kernel); the decode is one launch of
   the wire expand kernel. The reference keeps the assembly between the
@@ -28,12 +29,14 @@ Two routes compute the same bytes:
   gather), independent of the global route.
 
 Both routes are bit-exact against each other and against the reference's
-bytes for the same (x, noise, Delta).
+bytes for the same (x, noise, Delta). The noise is a unit draw u (fed) or
+a Philox stream key, whose u over the (n_chunks, 256) view is
+``repro_torch.kernels.nsd_quant.philox_uniform(key, x.shape, cols=256)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, Optional, Tuple
+from typing import ClassVar, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +48,6 @@ DEFAULT_CHUNK = 256  # elements per chunk, the only chunk either route uses
 HEADER_BYTES = 4
 BACKENDS = ("kernel", "plain")
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
-_ROWS = 128  # the NSD and pack kernels' tile height over the chunk view
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,35 +188,38 @@ def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype, *,
                      dtype=dtype_name(dtype))
 
 
-def pack_nsd(x: torch.Tensor, u: torch.Tensor, s: float, *,
+def pack_nsd(x: torch.Tensor, noise: Union[int, torch.Tensor], s: float, *,
              backend: str = "kernel",
              delta: Optional[torch.Tensor] = None) -> PackedNSD:
-    """NSD-quantize ``x`` with unit noise ``u`` (x's shape) and lay it out
-    in wire format: Delta = s * std(x) (population std, f32) unless
-    ``delta`` is given, k = clip(floor((x + u * Delta) / Delta + 1/2), +-127)
-    over the flat (row-major) order of ``x``.
+    """NSD-quantize ``x`` and lay it out in wire format: Delta = s * std(x)
+    (population std, f32) unless ``delta`` is given,
+    k = clip(floor((x + u * Delta) / Delta + 1/2), +-127) over the flat
+    (row-major) order of ``x``, with ``noise`` either the unit draw u (x's
+    shape) or a stream key drawn over the (n_chunks, 256) view.
 
-    The kernel route quantizes the (n_chunks, 256) view with the NSD kernel
-    (zero x and zero noise in the padding, so padded k is 0) and lays the
-    view out with one launch of the wire compact kernel.
+    The kernel route runs one NSD launch on x as it stands (zeros in the
+    padding of the last chunk) and lays its k out with one launch of the
+    wire compact kernel.
     """
     from repro_torch.kernels import nsd_quant
 
-    if u.shape != x.shape:
-        raise ValueError(f"pack_nsd: noise {tuple(u.shape)} is not the "
+    fed = isinstance(noise, torch.Tensor)
+    if fed and noise.shape != x.shape:
+        raise ValueError(f"pack_nsd: noise {tuple(noise.shape)} is not the "
                          f"shape of x {tuple(x.shape)}")
+    kernel = _check_backend(backend)
     if delta is None:
         delta = nsd.compute_delta(x, s)
     delta = delta.to(torch.float32).reshape(())
-    if not _check_backend(backend):
+    if not kernel:
+        u = noise if fed else nsd_quant.philox_uniform_plain(
+            noise, x.shape, cols=DEFAULT_CHUNK, device=x.device)
         return pack_indices(nsd.nsd_indices(x, u, delta), delta, x.shape,
                             x.dtype, backend=backend)
-    x2d = _chunk_view(x.to(torch.float32).reshape(-1))
-    noise2d = _chunk_view(nsd.dither_noise(u, delta).reshape(-1))
-    k2d, _ = nsd_quant.nsd_quantize_blocked(
-        _pad2d(x2d, _ROWS, 1).contiguous(),
-        _pad2d(noise2d, _ROWS, 1).contiguous(), delta)
-    k2d = k2d[:x2d.shape[0]]
+    route = {"noise": nsd.dither_noise(noise, delta)} if fed else {"key": noise}
+    q = nsd_quant.nsd_quantize(x.to(torch.float32).contiguous(), delta,
+                               cols=DEFAULT_CHUNK, bitmap=False, **route)
+    k2d = q.k[:-(-x.numel() // DEFAULT_CHUNK)]
     return pack_indices(k2d, delta, x.shape, x.dtype, backend=backend)
 
 

@@ -49,6 +49,87 @@ def test_nsd_kernel_matches_plain(cuda, shape, s):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# unpadded cotangents: fc2 (128 x 10), c0's width 64, ragged rows and
+# columns, a width that is not a multiple of 4
+FUSED_SHAPES = [(128, 10), (1000, 64), (130, 200), (37, 513), (300, 6)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+@pytest.mark.parametrize("route", ["key", "fed"])
+@pytest.mark.parametrize("s", [2.0, 0.0])
+def test_fused_nsd_kernel_matches_plain(cuda, shape, route, s):
+    """One launch: k, bitmap, nnz and mask bit for bit against the plain
+    version, zeros in the padding, and the bitmap, nnz and mask those of
+    the pack's plain version on the same k."""
+    g = _rand(shape, cuda, 21) * 1e-3
+    delta = (s * g.std(correction=0)).reshape(())
+    key = 0x9E3779B97F4A7C15
+    kw = ({"key": key} if route == "key" else
+          {"noise": nsd_quant.philox_uniform_plain(key, shape, device=cuda) * delta})
+    before = dict(build.LAUNCHES)
+    got = nsd_quant.nsd_quantize(g, delta, **kw)
+    assert build.LAUNCHES == {**before, "nsd_quant": before["nsd_quant"] + 1}
+    want = nsd_quant.nsd_quantize_plain(g, delta, **kw)
+    for a, b, what in zip(got, want, ("k", "bitmap", "nnz", "mask")):
+        assert a.shape == b.shape and a.dtype == b.dtype, what
+        assert torch.equal(a, b), what
+    for a, b in zip(got[1:], pack.bitmap_pack_blocked_plain(got.k)):
+        assert torch.equal(a, b)
+    T, N = shape
+    assert not got.k[T:].any() and not got.k[:, N:].any()
+    if route == "key":  # the same numbers as the fed draw of the same key
+        fed = nsd_quant.nsd_quantize(g, delta, noise=nsd_quant.philox_uniform(
+            key, shape, device=cuda) * delta)
+        assert all(torch.equal(a, b) for a, b in zip(got, fed))
+
+
+@pytest.mark.parametrize("n", [7, 1000, 2_097_152 + 100])
+def test_fused_nsd_kernel_on_the_chunk_view(cuda, n):
+    """The residual encode's call: a flat tensor over (n_chunks, 256), the
+    last chunk partly live, no bitmap."""
+    x = torch.relu(_rand((n,), cuda, 22))
+    delta = x.std(correction=0).reshape(())
+    got = nsd_quant.nsd_quantize(x, delta, key=77, cols=256, bitmap=False)
+    want = nsd_quant.nsd_quantize_plain(x, delta, key=77, cols=256, bitmap=False)
+    assert got.bitmap is None
+    assert torch.equal(got.k, want.k) and torch.equal(got.nnz, want.nnz)
+    assert not got.k.reshape(-1)[n:].any()
+
+
+@pytest.mark.parametrize("shape,cols", [((131072, 64), None), ((3, 10), None),
+                                        ((1000,), 256), ((5, 7), None)])
+def test_philox_uniform_kernel_matches_plain(cuda, shape, cols):
+    before = build.LAUNCHES["philox_uniform"]
+    got = nsd_quant.philox_uniform(0xDEADBEEF12345678, shape, cols=cols,
+                                   device=cuda)
+    assert build.LAUNCHES["philox_uniform"] == before + 1
+    want = nsd_quant.philox_uniform_plain(0xDEADBEEF12345678, shape, cols=cols,
+                                          device=cuda)
+    assert torch.equal(got, want)
+
+
+def test_paper_variant_draws_with_the_draw_kernel(cuda):
+    x = _rand((100, 200), cuda, 23).requires_grad_()
+    w = (_rand((200, 72), cuda, 24) * 0.1).requires_grad_()
+    ctx = DitherCtx(DitherPolicy(variant="paper"), device=cuda)
+    build.reset_launches()
+    dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0),
+                              "philox_uniform": 1}
+
+
+@pytest.mark.parametrize("shape", [(256, 384), (131072, 128), (128, 32)])
+def test_pack_kernel_matches_plain_at_sizes(cuda, shape):
+    k = (_rand(shape, cuda, 25) * 1.5).round().clamp(-127, 127).to(torch.int8)
+    k[:128, :32] = 0  # an empty tile (or its first 32 columns)
+    before = build.LAUNCHES["bitmap_pack"]
+    got = pack.bitmap_pack_blocked(k, bn=32 if shape[1] == 32 else 128)
+    assert build.LAUNCHES["bitmap_pack"] == before + 1
+    want = pack.bitmap_pack_blocked_plain(k, bn=32 if shape[1] == 32 else 128)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_pack_kernel_matches_plain(cuda):
     k = (_rand((256, 384), cuda, 2) * 2).round().clamp(-127, 127).to(torch.int8)
     k[:128, 128:256] = 0
@@ -90,8 +171,7 @@ def test_dense_kernel_backward_launches_each_kernel(cuda):
     dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
     torch.cuda.synchronize()
     assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0),
-                              "nsd_quant": 1, "bitmap_pack": 1,
-                              "bsp_matmul_int8": 2}
+                              "nsd_quant": 1, "bsp_matmul_int8": 2}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
 
 
@@ -191,15 +271,22 @@ def test_nsd_codec_kernel_route_matches_plain_route(cuda):
     want = quant.wire.pack_nsd(x, u, 1.0, backend="plain")
     for name in ("levels", "bitmap", "deltas", "nnz"):
         assert torch.equal(getattr(p, name), getattr(want, name)), name
+    # the key route: the draw inside the NSD launch, no separate draw
+    pk = quant.wire.pack_nsd(x, 12345, 1.0)
+    assert (build.LAUNCHES["nsd_quant"], build.LAUNCHES["philox_uniform"]) == (2, 0)
+    pk_plain = quant.wire.pack_nsd(x, 12345, 1.0, backend="plain")
+    for name in ("levels", "bitmap", "deltas", "nnz"):
+        assert torch.equal(getattr(pk, name), getattr(pk_plain, name)), name
     out = quant.wire.unpack_nsd(p)
     assert (build.LAUNCHES["bitmap_unpack"], build.LAUNCHES["levels_expand"]) == (0, 1)
     assert torch.equal(out, quant.wire.unpack_nsd(want, backend="plain"))
 
 
 def test_dense_nsd_residual_launches_each_kernel(cuda):
-    """One dithered layer with an nsd residual: the cotangent's NSD, pack
-    and two products, the residual's NSD and one wire compact in the
-    forward, one wire expand in the backward."""
+    """One dithered layer with an nsd residual: the cotangent's NSD (which
+    writes the bitmap and tile mask itself) and two products, the residual's
+    NSD and one wire compact in the forward, one wire expand in the
+    backward; no pack, unpack or separate draw."""
     x = _rand((100, 200), cuda, 10).requires_grad_()
     w = (_rand((200, 72), cuda, 11) * 0.1).requires_grad_()
     ctx = DitherCtx(DitherPolicy(variant="kernel"), device=cuda,
@@ -207,10 +294,10 @@ def test_dense_nsd_residual_launches_each_kernel(cuda):
     build.reset_launches()
     dithered.dense(x, w, ctx=ctx, name="fc").sum().backward()
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"nsd_quant": 2, "bitmap_pack": 1,
+    assert build.LAUNCHES == {"nsd_quant": 2, "bitmap_pack": 0,
                               "bsp_matmul_int8": 2, "bitmap_unpack": 0,
                               "levels_compact": 1, "levels_expand": 1,
-                              "bsp_matmul_dequant": 0}
+                              "bsp_matmul_dequant": 0, "philox_uniform": 0}
     assert torch.isfinite(w.grad).all()
 
 
