@@ -83,8 +83,9 @@ Phases (any failure exits non-zero and prints no result):
      the nsd step's excess;
   6. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
-     kernel of its source under ``philox_uniform``, and the bound of the
-     padded definition, 9 bytes a padded element, under ``old_bound_ms``);
+     kernel of its source under ``philox_uniform``; phase 5's log gives
+     the NSD row's bound by the padded definition too, 9 bytes a padded
+     element);
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -975,8 +976,6 @@ def main() -> int:
                                       "library_ms")}}
         if tot["graph_ms"]:
             row["graph_ms"] = tot["graph_ms"]  # device time, no host dispatch
-        if tot["old_bound_ms"]:
-            row["old_bound_ms"] = tot["old_bound_ms"]
         if kname == "bitmap_unpack":
             row["note"] = ("no path launches it: the wire expand reads the bitmap "
                            "itself; held and timed on the nsd step's decode bitmaps")
@@ -990,7 +989,7 @@ def main() -> int:
             row["nsd_residual_encode"] = {
                 "launches": launches_nsd[kname] - launches[kname],
                 **{k: enc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                       "graph_ms", "old_bound_ms")}}
+                                       "graph_ms")}}
         if kname == "nsd_quant":
             # the draw-only entry of the same source, on the fp32 step's
             # cotangent shapes, with its launches over phase 4d's paper run

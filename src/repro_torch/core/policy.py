@@ -28,8 +28,8 @@ Residual memory. ``DitherCtx.memory`` (a ``repro_torch.memory``
 its static spec. The ``nsd`` residual encode draws from a second stream per
 layer, :meth:`DitherCtx.resid_key`: the layer's key mixed once more with
 ``RESID_SALT``, independent of the cotangent's; its unit draw,
-:meth:`DitherCtx.resid_noise`, runs over the wire's (chunks, 256) view of
-the residual's flat order.
+:meth:`DitherCtx.resid_noise`, is the wire's own
+(``repro_torch.quant.wire.unit_draw``).
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nsd_quant
+from repro_torch.quant import wire
 from repro_torch.quant.codecs import MODE_FP32, RESID_SALT, validate_mode
-from repro_torch.quant.wire import DEFAULT_CHUNK
 
 VARIANT_OFF = "off"
 VARIANT_PAPER = "paper"
@@ -110,14 +110,14 @@ class DitherCtx:
     """Per-step dither state: the policy plus what seeds the noise.
 
     The draw: layer ``name``'s stream key is :meth:`cotangent_key` (its
-    residual encode's, :meth:`resid_key`). Element (r, c) of the 2-D view
-    (rows, cols) of a drawn tensor takes word c % 4 of
-    philox4x32_10(counter (c // 4, r, 0, 0), key (key & 0xffffffff,
-    key >> 32)) as u = (word >> 8) * 2^-24 - 1/2, exact in f32 and in
-    [-1/2, 1/2). The kernel variant never materialises u: its NSD launch
-    gets the key and draws inside (``repro_torch.kernels.nsd_quant``).
-    :meth:`unit_noise` and :meth:`resid_noise` return the same numbers as a
-    tensor, element for element what the launch draws from that key.
+    residual encode's, :meth:`resid_key`), and the unit draw u in
+    [-1/2, 1/2) is Philox4x32-10 under that key, counter (c // 4, r, 0, 0)
+    for element (r, c) of a 2-D view (the mapping in full:
+    ``repro_torch.kernels.nsd_quant``). The context hands out keys; the
+    kernel variant never materialises u: its NSD launch gets the key and
+    draws inside. :meth:`unit_noise` and :meth:`resid_noise` return the
+    same numbers as a tensor, element for element what the launch draws
+    from that key.
     """
 
     policy: DitherPolicy
@@ -165,15 +165,14 @@ class DitherCtx:
 
     def resid_noise(self, name: str, shape) -> torch.Tensor:
         """u ~ U(-1/2, 1/2), f32, of ``shape`` for layer ``name``'s residual
-        encode: the Philox draw of :meth:`resid_key` over the flat order
-        viewed as rows of ``DEFAULT_CHUNK`` (the wire's chunks), the one the
-        encode's NSD launch takes from that key.
+        encode: the wire's draw of :meth:`resid_key`
+        (``repro_torch.quant.wire.unit_draw``), the one the encode's NSD
+        launch takes from that key.
 
         The shape is that of the residual in the reference's layout (NHWC
         for a convolution's input).
         """
-        return nsd_quant.philox_uniform(self.resid_key(name), shape,
-                                        cols=DEFAULT_CHUNK, device=self.device)
+        return wire.unit_draw(self.resid_key(name), shape, device=self.device)
 
     def cotangent_dither(self, name: str, shape) -> Union[int, torch.Tensor]:
         """What the kernel variant's NSD launch of layer ``name`` dithers

@@ -30,7 +30,8 @@ the one the launch takes inside.
 
 ``delta`` (a global std reduction) is formed outside, so the kernel is a
 pure function of its inputs. :func:`nsd_quantize_blocked` keeps the
-reference's padded, fed-noise signature (k and nnz) on the same kernel.
+reference's padded, fed-noise signature (k and nnz) on the same kernel, for
+tiles that are multiples of 128 on either device; only the tests call it.
 """
 from __future__ import annotations
 
@@ -118,11 +119,12 @@ def philox_uniform_plain(key: int, shape, *, cols: Optional[int] = None,
     return u.reshape(-1)[:numel].reshape(shape)
 
 
-def philox_uniform(key: int, shape, *, cols: Optional[int] = None,
-                   device=None) -> torch.Tensor:
-    """The draw of :func:`philox_uniform_plain`. On the CPU the plain
-    version; on a CUDA device one launch of the draw-only kernel."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+def philox_uniform(key: int, shape, *, device,
+                   cols: Optional[int] = None) -> torch.Tensor:
+    """The draw of :func:`philox_uniform_plain` on ``device`` (required: no
+    tensor names the route). On the CPU the plain version; on a CUDA device
+    one launch of the draw-only kernel."""
+    device = torch.device(device)
     if device.type == "cpu":
         return philox_uniform_plain(key, shape, cols=cols, device=device)
     if device.type != "cuda":
@@ -233,6 +235,9 @@ def _check(x, noise, delta, bm, bn):
         raise ValueError(f"nsd_quant: x {tuple(x.shape)} and noise "
                          f"{tuple(noise.shape)} must be one 2-D shape")
     M, N = x.shape
+    if bm % TILE or bn % TILE or bm <= 0 or bn <= 0:
+        raise ValueError(f"nsd_quant: the tile {(bm, bn)} is not a multiple "
+                         f"of the kernel's {TILE} x {TILE}")
     if M % bm or N % bn:
         raise ValueError(f"nsd_quant: shape {(M, N)} is not a multiple of "
                          f"the tile {(bm, bn)}")
@@ -254,19 +259,21 @@ def nsd_quantize_blocked_plain(x: torch.Tensor, noise: torch.Tensor,
 
 def nsd_quantize_blocked(x: torch.Tensor, noise: torch.Tensor,
                          delta: torch.Tensor, *, bm: int = 128, bn: int = 128):
-    """x, noise: (M, N) f32 with M % bm == 0, N % bn == 0; delta: scalar f32.
+    """x, noise: (M, N) f32 with M % bm == 0, N % bn == 0; delta: scalar f32;
+    bm and bn multiples of 128 on either device.
 
     Returns (k int8 (M, N), nnz int32 (M // bm, N // bn)). CPU tensors take
     the plain version; CUDA tensors launch the fused kernel (without its
-    bitmap; its tile is 128 x 128, so bm = bn = 128 there), or raise.
+    bitmap) and sum its 128 x 128 tile counts into (bm, bn) tiles, or raise.
     """
-    _check(x, noise, delta, bm, bn)
+    M, N = _check(x, noise, delta, bm, bn)
     if x.device.type == "cpu":
         return nsd_quantize_blocked_plain(x, noise, delta, bm=bm, bn=bn)
     if x.device.type != "cuda":
         raise ValueError(f"nsd_quant: no kernel for device {x.device}")
-    if (bm, bn) != (TILE, TILE):
-        raise ValueError(f"nsd_quant: the kernel's tile is {TILE} x {TILE}, "
-                         f"not {(bm, bn)}")
     q = nsd_quantize(x, delta, noise=noise, bitmap=False)
-    return q.k, q.nnz
+    if (bm, bn) == (TILE, TILE):
+        return q.k, q.nnz
+    nnz = q.nnz.reshape(M // bm, bm // TILE, N // bn, bn // TILE).sum(
+        (1, 3), dtype=torch.int32)
+    return q.k, nnz

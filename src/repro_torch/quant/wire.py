@@ -30,8 +30,7 @@ Two routes compute the same bytes:
 
 Both routes are bit-exact against each other and against the reference's
 bytes for the same (x, noise, Delta). The noise is a unit draw u (fed) or
-a Philox stream key, whose u over the (n_chunks, 256) view is
-``repro_torch.kernels.nsd_quant.philox_uniform(key, x.shape, cols=256)``.
+a Philox stream key, whose u is :func:`unit_draw`.
 """
 from __future__ import annotations
 
@@ -170,6 +169,16 @@ def _chunk_view(flat: torch.Tensor) -> torch.Tensor:
     return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, DEFAULT_CHUNK)
 
 
+def unit_draw(key: int, shape, *, device) -> torch.Tensor:
+    """The unit draw u (``shape``, f32) that the encode's NSD launch takes
+    from stream ``key``: ``repro_torch.kernels.nsd_quant``'s Philox draw
+    over the (n_chunks, DEFAULT_CHUNK) view of the flat order."""
+    from repro_torch.kernels import nsd_quant
+
+    return nsd_quant.philox_uniform(key, shape, cols=DEFAULT_CHUNK,
+                                    device=device)
+
+
 def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype, *,
                  backend: str = "kernel") -> PackedNSD:
     """Pack precomputed NSD indices (int8/int32 k) and a scalar Delta."""
@@ -195,7 +204,7 @@ def pack_nsd(x: torch.Tensor, noise: Union[int, torch.Tensor], s: float, *,
     (population std, f32) unless ``delta`` is given,
     k = clip(floor((x + u * Delta) / Delta + 1/2), +-127) over the flat
     (row-major) order of ``x``, with ``noise`` either the unit draw u (x's
-    shape) or a stream key drawn over the (n_chunks, 256) view.
+    shape) or a stream key whose draw is :func:`unit_draw`.
 
     The kernel route runs one NSD launch on x as it stands (zeros in the
     padding of the last chunk) and lays its k out with one launch of the

@@ -49,6 +49,17 @@ def test_nsd_kernel_matches_plain(cuda, shape, s):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_nsd_blocked_kernel_sums_wide_tiles(cuda):
+    """A (bm, bn) tile wider than the kernel's sums its 128 x 128 counts."""
+    x = _rand((256, 512), cuda, 2)
+    delta = (2.0 * x.std(correction=0)).reshape(())
+    nu = (torch.rand(x.shape, device=cuda) - 0.5) * delta
+    got = nsd_quant.nsd_quantize_blocked(x, nu, delta, bm=128, bn=512)
+    want = nsd_quant.nsd_quantize_blocked_plain(x, nu, delta, bm=128, bn=512)
+    assert got[1].shape == (2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # unpadded cotangents: fc2 (128 x 10), c0's width 64, ragged rows and
 # columns, a width that is not a multiple of 4
 FUSED_SHAPES = [(128, 10), (1000, 64), (130, 200), (37, 513), (300, 6)]

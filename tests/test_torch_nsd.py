@@ -132,3 +132,8 @@ def test_nsd_blocked_rejects_bad_shapes():
     with pytest.raises(ValueError):
         nsd_quant.nsd_quantize_blocked(torch.zeros(128, 128),
                                        torch.zeros(128, 256), torch.tensor(1.0))
+    # the tile is a multiple of the kernel's 128 x 128 on either device
+    with pytest.raises(ValueError, match="multiple"):
+        nsd_quant.nsd_quantize_blocked(torch.zeros(128, 128),
+                                       torch.zeros(128, 128), torch.tensor(1.0),
+                                       bm=64, bn=64)
