@@ -53,6 +53,36 @@ Phases (any failure exits non-zero and prints no result):
   4d. the paper variant (NSD in f32 ops, f32 products) for 5 steps: its
      only kernel is the draw-only Philox kernel, 11 launches a step; loss
      finite, step time printed;
+  4e. the other five Table-1 models (MLP-(500, 500), LeNet-300-100,
+     LeNet5, AlexNet-CIFAR, ResNet18) at full width, batch 128, 5 steps,
+     variant=kernel, each through ``train_classifier``: loss finite, no
+     fallback, the launches per step (NSD / int8 product: MLP and
+     LeNet-300-100 3 / 5, LeNet5 5 / 9, AlexNet 8 / 15, ResNet18 21 / 41;
+     the first layer's dx is skipped; pack and the draw kernel 0), sparsity
+     within 8 points of the same steps on the plain versions, step-1
+     gradients against the plain versions (relative L2 <= 1e-5), and the
+     share of live tiles that the masks skipped; ResNet18 again with
+     ``memory="default=nsd"`` (NSD 42, compact 21, expand 21, int8 product
+     41 a step; ``residual_compression`` equal to the plain versions' run),
+     a torch.profiler breakdown of one fp32-residual ResNet18 step, and the
+     peak device memory of one step with fp32 and with nsd residuals;
+  4f. the int8 variant, 3 steps, on MLP (NSD 3, int8 product 5, draw 0 a
+     step) and LeNet5 (NSD 3 and int8 product 6 for fc1-fc3, the draw
+     kernel 2 for c1 and c2, which take the generic path); step 1's k and
+     gradients against the plain versions';
+  4g. Table 1 over the six models at the reference's recipe
+     (``repro_torch.train.table1.run(quick=False)``: s = 2, batch 64, 50
+     steps; plain, dithered and 8-bit + dithered); the three MNIST rows
+     gated by ``repro_torch.bench.compare`` against the reference's
+     ``benchmarks/baselines/BENCH_table1_sparsity.json`` (accuracy within
+     10 points, sparsity 8, bits 1), AlexNet's and ResNet18's dithered
+     and int8 accuracies within 10 points of the same run's baseline;
+     VGG11's, whose 50-step accuracy spreads over tens of points from seed
+     to seed, as the mean over ``TABLE1_SEEDS`` (this run's seed 0 and
+     further trainings at the other seeds) at most 10 points under the
+     reference's mean over its 24 seeds on the CPU
+     (``src/repro_torch/bench/baselines/table1_cifar_reference.json``, made
+     by ``tests/table1_cifar_rows.py``);
   5. capture every kernel input of one step (for the NSD kernel its
      cotangent calls of the fp32 step and, apart, its calls in the nsd
      step's residual encode; for compact and expand the wire calls of the
@@ -85,7 +115,8 @@ Phases (any failure exits non-zero and prints no result):
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
-     element);
+     element; every row's ``launches_by_path`` gives its launches in the
+     runs of phases 4e and 4f);
   7. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
@@ -126,6 +157,33 @@ PAPER_PER_STEP = {"philox_uniform": 11}
 # both NSD routes in phase 3
 COTANGENTS = {"c0": (131072, 64), "c1": (32768, 128), "c5": (2048, 512),
               "fc2": (128, 10)}
+# phase 4e, variant=kernel: one NSD a layer, two products but for the first
+# layer's dx; pack and the draw kernel 0
+NEW_MODELS = {
+    "mlp-mnist": {"nsd_quant": 3, "bsp_matmul_int8": 5},
+    "lenet300100": {"nsd_quant": 3, "bsp_matmul_int8": 5},
+    "lenet5": {"nsd_quant": 5, "bsp_matmul_int8": 9},
+    "alexnet-cifar": {"nsd_quant": 8, "bsp_matmul_int8": 15},
+    "resnet18-cifar": {"nsd_quant": 21, "bsp_matmul_int8": 41},
+}
+# ResNet18 with memory="default=nsd": each of the 21 layers encodes its input
+RESNET_NSD_PER_STEP = {"nsd_quant": 42, "bsp_matmul_int8": 41,
+                       "levels_compact": 21, "levels_expand": 21}
+# phase 4f, variant=int8: dense layers on the NSD and int8 kernels, the
+# convolutions' unit draws on the draw kernel
+INT8_STEPS = 3
+INT8_MODELS = {
+    "mlp-mnist": {"nsd_quant": 3, "bsp_matmul_int8": 5},
+    "lenet5": {"nsd_quant": 3, "bsp_matmul_int8": 6, "philox_uniform": 2},
+}
+TABLE1_ACC_BAND = 10.0  # points; Table 1's accuracy gate
+# VGG11's Table-1 accuracies are held as the card's means over these seeds
+# against the reference's means over its rows (24 seeds). A seed's accuracy
+# in one package says nothing of the other's at that seed (correlation ~0),
+# so the card takes more seeds to shrink its own sampling error
+TABLE1_SEEDS = tuple(range(48))
+TABLE1_REFERENCE_SEEDS = 24
+TABLE1_REFERENCE = "src/repro_torch/bench/baselines/table1_cifar_reference.json"
 MEMORY = "default=nsd"
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
@@ -644,6 +702,239 @@ def main() -> int:
     log(f"phase 4d: paper variant {json.dumps(res_paper)}; launches over {STEPS} "
         f"steps { {k: v for k, v in launches_paper.items() if v} } ({card})")
 
+    # -- phase 4e: the other five Table-1 models, variant=kernel -----------
+    from repro_torch.configs import paper_models
+    from repro_torch.train import table1
+
+    def model_batch(mcfg, step=0):
+        return classification_batch(ClassifConfig(
+            n_classes=mcfg.n_classes, img_size=mcfg.img_size,
+            channels=mcfg.in_channels, noise=0.5, seed=SEED), step, BATCH)
+
+    def first_step(mcfg, pol, memory=None):
+        """Step 1's loss and gradients of model ``mcfg`` under ``pol``, and
+        the quantized cotangents (k, mask) of its layers."""
+        net = CNN(mcfg, seed=SEED)
+        ctx = DitherCtx(pol, seed=SEED, step=0, memory=as_memory_policy(memory))
+        qs = []
+        real_q = ops.quantize_and_mask
+
+        def rec(*a, **kw):
+            qs.append(real_q(*a, **kw))
+            return qs[-1]
+
+        ops.quantize_and_mask = rec
+        try:
+            loss = loss_fn(net, model_batch(mcfg), ctx=ctx)
+            loss.backward()
+        finally:
+            ops.quantize_and_mask = real_q
+        return (float(loss.detach()), {n: q.grad for n, q in net.named_parameters()},
+                qs)
+
+    def skipped_tiles(qs):
+        """(live tiles whose mask is 0, live tiles) over quantized
+        cotangents: a tile is live where it meets the unpadded (T, N)."""
+        skipped = live = 0
+        for q in qs:
+            T, N = q.shape
+            m = q.mask[:-(-T // 128), :-(-N // 128)]
+            live += m.numel()
+            skipped += int((m == 0).sum())
+        return skipped, live
+
+    model_launches = {}  # path -> its launches, for the kernels line
+    kernel_pol = policy.replace(collect_stats=True)
+    for mname, per_step in NEW_MODELS.items():
+        t_model = time.perf_counter()
+        mcfg = paper_models.MODELS[mname]()
+        qs_run = []
+        real_q = ops.quantize_and_mask
+
+        def rec_run(*a, **kw):
+            qs_run.append(real_q(*a, **kw))
+            return qs_run[-1]
+
+        ops.KERNEL_FALLBACKS.clear()
+        build.reset_launches()
+        ops.quantize_and_mask = rec_run
+        try:
+            res_m = train_classifier(mcfg, kernel_pol, steps=STEPS, batch=BATCH,
+                                     seed=SEED)
+        finally:
+            ops.quantize_and_mask = real_q
+        got = dict(build.LAUNCHES)
+        model_launches[f"{mname} kernel"] = got
+        check(math.isfinite(res_m["final_loss"]), f"{mname}: loss {res_m['final_loss']}")
+        check(not ops.KERNEL_FALLBACKS, f"{mname}: fallbacks {ops.KERNEL_FALLBACKS}")
+        for kname in build.LAUNCHES:
+            want = per_step.get(kname, 0) * STEPS
+            check(got[kname] == want, f"{mname}: {kname} {got[kname]} launches, "
+                                      f"want {want}")
+        skipped, live = skipped_tiles(qs_run)
+        del qs_run
+        with plain_kernels():
+            build.reset_launches()
+            res_mp = train_classifier(mcfg, kernel_pol, steps=STEPS, batch=BATCH,
+                                      seed=SEED)
+            check(not any(build.LAUNCHES.values()), "plain run launched a kernel")
+        check(abs(res_m["sparsity"] - res_mp["sparsity"]) <= SPARSITY_BAND,
+              f"{mname}: sparsity {res_m['sparsity']} vs plain {res_mp['sparsity']}")
+        loss_mk, grads_mk, _ = first_step(mcfg, policy)
+        with plain_kernels():
+            loss_mp, grads_mp, _ = first_step(mcfg, policy)
+        worst_m = worst_rel(grads_mk, grads_mp, f"{mname} kernel")
+        log(f"phase 4e: {mname} kernel path {json.dumps(res_m)}; plain versions "
+            f"{json.dumps(res_mp)}")
+        log(f"phase 4e: {mname} launches per step "
+            f"{ {k: v // STEPS for k, v in got.items() if v} }; step-1 loss "
+            f"{loss_mk} (plain {loss_mp}), worst relative L2 gradient difference "
+            f"{worst_m}; live tiles skipped by the masks over {STEPS} steps: "
+            f"{skipped} of {live} ({100 * skipped / live:.3f}%); "
+            f"{time.perf_counter() - t_model:.1f} s ({card})")
+
+    # ResNet18 with NSD-encoded residuals; both steps' peak memory and a
+    # profile of one fp32-residual step
+    t_phase = time.perf_counter()
+    rcfg = paper_models.resnet18_cifar()
+    ops.KERNEL_FALLBACKS.clear()
+    build.reset_launches()
+    res_rn = train_classifier(rcfg, kernel_pol, steps=STEPS, batch=BATCH, seed=SEED,
+                              memory=MEMORY)
+    got = dict(build.LAUNCHES)
+    model_launches["resnet18-cifar kernel nsd"] = got
+    check(math.isfinite(res_rn["final_loss"]), f"resnet18 nsd: loss {res_rn['final_loss']}")
+    check(not ops.KERNEL_FALLBACKS, f"resnet18 nsd: fallbacks {ops.KERNEL_FALLBACKS}")
+    for kname in build.LAUNCHES:
+        want = RESNET_NSD_PER_STEP.get(kname, 0) * STEPS
+        check(got[kname] == want, f"resnet18 nsd: {kname} {got[kname]} launches, "
+                                  f"want {want}")
+    with plain_kernels():
+        build.reset_launches()
+        res_rnp = train_classifier(rcfg, kernel_pol, steps=STEPS, batch=BATCH,
+                                   seed=SEED, memory=MEMORY)
+        check(not any(build.LAUNCHES.values()), "plain run launched a kernel")
+    comp, comp_plain = res_rn["residual_compression"], res_rnp["residual_compression"]
+    check(abs(comp - comp_plain) <= COMPRESSION_BAND * comp_plain,
+          f"resnet18 residual_compression {comp} vs plain {comp_plain}")
+    log(f"phase 4e: resnet18-cifar memory={MEMORY!r} {json.dumps(res_rn)}; plain "
+        f"versions {json.dumps(res_rnp)}; launches per step "
+        f"{ {k: v // STEPS for k, v in got.items() if v} }")
+    rbatch = model_batch(rcfg)
+    for label, memory in (("fp32 residuals", None), (f"memory={MEMORY!r}", MEMORY)):
+        net = CNN(rcfg, seed=SEED)
+        ctx = DitherCtx(policy, seed=SEED, step=0, memory=as_memory_policy(memory))
+
+        def fwd_bwd(net=net, ctx=ctx):
+            for q in net.parameters():
+                q.grad = None
+            loss_fn(net, rbatch, ctx=ctx).backward()
+
+        if memory is None:
+            profile_step(torch, fwd_bwd, card, f"resnet18-cifar, {label}")
+        fwd_bwd()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 4e: resnet18-cifar ({label}): peak device memory of one "
+            f"batch-{BATCH} step {peak / 2**20:.1f} MiB, "
+            f"{(peak - base) / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
+            f"held between steps ({card})")
+        del net, ctx, fwd_bwd
+    log(f"phase 4e: resnet18-cifar nsd, memory and profile: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 4f: the int8 variant (dense products on the int8 kernel,
+    # convolutions on the generic path with the draw kernel) -------------
+    t_phase = time.perf_counter()
+    int8_pol = policy.replace(variant="int8", collect_stats=True)
+    for mname, per_step in INT8_MODELS.items():
+        mcfg = paper_models.MODELS[mname]()
+        build.reset_launches()
+        res_i = train_classifier(mcfg, int8_pol, steps=INT8_STEPS, batch=BATCH,
+                                 seed=SEED)
+        got = dict(build.LAUNCHES)
+        model_launches[f"{mname} int8"] = got
+        check(math.isfinite(res_i["final_loss"]), f"{mname} int8: loss")
+        for kname in build.LAUNCHES:
+            want = per_step.get(kname, 0) * INT8_STEPS
+            check(got[kname] == want, f"{mname} int8: {kname} {got[kname]} "
+                                      f"launches, want {want}")
+        # the convolutions' products run on cuDNN: its deterministic
+        # algorithms, so that two runs on equal inputs give equal bits
+        torch.backends.cudnn.deterministic = True
+        try:
+            loss_ik, grads_ik, qs_k = first_step(mcfg, int8_pol.replace(
+                collect_stats=False))
+            with plain_kernels():
+                loss_ip, grads_ip, qs_p = first_step(mcfg, int8_pol.replace(
+                    collect_stats=False))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(len(qs_k) == len(qs_p) == per_step["nsd_quant"], f"{mname} int8: "
+              f"{len(qs_k)} quantized layers")
+        for qk, qp in zip(qs_k, qs_p):
+            check(torch.equal(qk.k, qp.k) and torch.equal(qk.mask, qp.mask),
+                  f"{mname} int8: k differs from the plain versions'")
+        worst_i = worst_rel(grads_ik, grads_ip, f"{mname} int8")
+        log(f"phase 4f: {mname} int8 {json.dumps(res_i)}; launches per step "
+            f"{ {k: v // INT8_STEPS for k, v in got.items() if v} }; k equal to the "
+            f"plain versions' on {len(qs_k)} layers, step-1 loss {loss_ik} (plain "
+            f"{loss_ip}), worst relative L2 gradient difference {worst_i}")
+    log(f"phase 4f: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+    # -- phase 4g: Table 1 over the six models (the reference's recipe) ----
+    t_phase = time.perf_counter()
+    from repro_torch.bench import SuiteRun
+
+    t1_rows = table1.run(quick=False)
+    for row in t1_rows:
+        log(f"phase 4g: table1 {json.dumps(row)}")
+    baseline = SuiteRun.from_dict(json.loads(
+        (src.parent / "benchmarks" / "baselines" / "BENCH_table1_sparsity.json"
+         ).read_text()))
+    report = table1.check(table1.results(t1_rows), baseline)
+    log("phase 4g: " + report.render(verbose=True).replace("\n", "\nphase 4g: "))
+    check(report.ok and len(report.findings) > len(baseline.results),
+          "Table 1: the MNIST rows miss the reference's gates")
+    for row in t1_rows:
+        if row["model"] in table1.QUICK_MODELS or row["model"] == "vgg11-c10":
+            continue
+        for m in ("dithered", "int8+dith"):
+            check(row[f"{m}_acc"] >= row["baseline_acc"] - TABLE1_ACC_BAND,
+                  f"Table 1 {row['model']}: {m} accuracy {row[f'{m}_acc']} vs "
+                  f"baseline {row['baseline_acc']}")
+    # VGG11: one 50-step run's dithered accuracy is mostly seed noise (tens
+    # of points apart across seeds, in both packages), so its mean over
+    # TABLE1_SEEDS is held to the reference's mean over its rows
+    ref_rows = [r for r in json.loads((src.parent / TABLE1_REFERENCE).read_text()
+                                      )["rows"] if r["model"] == "vgg11-c10"]
+    check(len({r["seed"] for r in ref_rows}) == TABLE1_REFERENCE_SEEDS,
+          f"{TABLE1_REFERENCE}: {len(ref_rows)} VGG11 rows, want "
+          f"{TABLE1_REFERENCE_SEEDS} seeds")
+    vgg_row = next(r for r in t1_rows if r["model"] == "vgg11-c10")
+    vgg_cfg = table1._model("vgg11-c10")
+    for m, variant in (("dithered", "paper"), ("int8+dith", "int8")):
+        accs = [vgg_row[f"{m}_acc"]] + [
+            train_classifier(vgg_cfg, DitherPolicy(variant=variant, s=2.0),
+                             steps=50, seed=seed)["acc"]
+            for seed in TABLE1_SEEDS[1:]]
+        mean = statistics.fmean(accs)
+        ref_mean = statistics.fmean(r[f"{m}_acc"] for r in ref_rows)
+        log(f"phase 4g: vgg11-c10 {m} accuracy at seeds 0-{TABLE1_SEEDS[-1]}: "
+            f"{accs}, mean {mean} (the reference on the CPU at "
+            f"{len(ref_rows)} seeds: {[r[f'{m}_acc'] for r in ref_rows]}, "
+            f"mean {ref_mean}) ({card})")
+        check(mean >= ref_mean - TABLE1_ACC_BAND,
+              f"Table 1 vgg11-c10: {m} mean accuracy {mean} vs the "
+              f"reference's {ref_mean}")
+    log(f"phase 4g: Table 1, six models x 3 trainings of 50 steps at batch 64, "
+        f"and VGG11 x 2 at {len(TABLE1_SEEDS) - 1} more seeds: "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+
     # -- phase 5 ----------------------------------------------------------
     old = ("nsd_quant", "bsp_matmul_int8")
     resid = ("levels_compact", "levels_expand")
@@ -973,7 +1264,9 @@ def main() -> int:
                "replaces": KERNELS[kname][1], "launches": path_launches,
                "max_abs_err": max_err[kname],
                **{k: tot[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}}
+                                      "library_ms")},
+               # the launches of phases 4e and 4f's runs, by model and variant
+               "launches_by_path": {p: n[kname] for p, n in model_launches.items()}}
         if tot["graph_ms"]:
             row["graph_ms"] = tot["graph_ms"]  # device time, no host dispatch
         if kname == "bitmap_unpack":

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.core.dithered`` for ``dense`` and ``conv2d``. The
 forward is exact. The backward takes the pre-activation cotangent g (delta_z
-in the paper), quantizes it once with NSD, and uses the quantized tensor for
-both products:
+in the paper), quantizes it once, and uses the quantized tensor for both
+products:
 
     dx = g~ . W^T        (activation gradient, eq. 8)
     dW = x^T . g~        (weight gradient, eq. 9)
@@ -13,17 +13,31 @@ The bias is added outside the autograd Function, so its gradient is exact.
 Variants (``DitherPolicy.variant``):
   off     plain backprop (no Function in the graph at all)
   paper   NSD in f32, both products in f32
+  int8    NSD + absmax-int8 operands: a dense layer's k from the NSD kernel
+          and both products on the int8 kernel (``kernels.ops``), equal to
+          the reference's int8 products in int32; a convolution takes the
+          paper path, as in the reference
+  row     structured row dither (``core.rowdither``), f32 products
+  meprop  per-row top-k (``core.meprop``), f32 products
   kernel  fused NSD (with the bitmap and tile mask) + tile-skipping int8
           products on the CUDA kernels (``repro_torch.kernels.ops``); a
           convolution goes through im2col (``F.unfold``), and dx folds back
           with ``F.fold``.
 
 The noise of a layer is drawn for its 2-D cotangent (T, N): the kernel
-variant hands the NSD launch the layer's stream key
-(``ctx.cotangent_dither``), the paper variant draws the same numbers as a
-tensor (``ctx.unit_noise(name, (T, N))``). For a convolution the T rows run
+variant (and int8's dense layers) hands the NSD launch the layer's stream
+key (``ctx.cotangent_dither``), the paper variant draws the same numbers as
+a tensor (``ctx.unit_noise(name, (T, N))``), the row variant one number a
+row (``ctx.unit_noise(name, (T, 1))``). For a convolution the T rows run
 in the reference's NHWC order (b, h, w), so a fed reference draw lines up
 element for element.
+
+Convolutions take the reference's padding: ``"SAME"`` (for stride 2 the
+extra row and column go to the bottom and right), ``"VALID"``, an int or
+explicit ((top, bottom), (left, right)). Uneven padding is applied with
+``F.pad`` inside the autograd Function, before the forward convolution and
+before ``F.unfold`` in the backward (dx is sliced back), so the residual
+saved and encoded is the unpadded x, as in the reference.
 
 Residual memory (``repro_torch.memory``): the activation x that the
 weight-gradient product consumes is saved under the layer's residual mode
@@ -41,29 +55,62 @@ row, as in the reference).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import quant
-from repro_torch.core import nsd
-from repro_torch.core.policy import VARIANT_KERNEL, DitherCtx, DitherPolicy
+from repro_torch.core import meprop, nsd, rowdither
+from repro_torch.core.policy import (VARIANT_INT8, VARIANT_KERNEL,
+                                     VARIANT_MEPROP, VARIANT_ROW, DitherCtx,
+                                     DitherPolicy)
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics
 
 _DENSE_MODES = (quant.MODE_FP32, quant.MODE_REMAT)
+# the variants whose dense layers run k and both products on the kernels
+_KERNEL_DENSE = (VARIANT_KERNEL, VARIANT_INT8)
 
 
-def quantize_cotangent(g2d: torch.Tensor, u: torch.Tensor,
+def _emit_zero_share(out: torch.Tensor, pol: DitherPolicy, name: str) -> None:
+    """A 32-bit variant's telemetry row: the zero share of its output."""
+    zero = 1.0 - nsd.mask_mean(out != 0)
+    metrics.emit(name, nsd.QuantStats(
+        zero, torch.full_like(zero, 32.0), torch.zeros_like(zero)))
+
+
+def _unit_draw(dctx: DitherCtx, pol: DitherPolicy, name: str, shape):
+    """The unit draw the generic path's quantizer consumes for a (T, N)
+    cotangent: u (T, N) for NSD, one number a row (T, 1) for row dither,
+    none for meProp."""
+    if pol.variant == VARIANT_MEPROP:
+        return None
+    if pol.variant == VARIANT_ROW:
+        return dctx.unit_noise(name, (shape[0], 1))
+    return dctx.unit_noise(name, shape)
+
+
+def quantize_cotangent(g2d: torch.Tensor, u: Optional[torch.Tensor],
                        pol: DitherPolicy, name: str) -> torch.Tensor:
-    """The paper variant's NSD fake-quant of a 2-D cotangent: k * Delta."""
-    delta = nsd.compute_delta(g2d, pol.s)
-    k = nsd.nsd_indices(g2d, u, delta)
+    """The generic path's quantizer of a 2-D cotangent, by variant (see
+    :func:`_unit_draw` for ``u``): NSD's fake-quant k * Delta (paper, int8
+    and kernel variants), the row dither (u + 1/2, exact in f32, is the
+    row's uniform in [0, 1)), or meProp's top-k."""
+    if pol.variant == VARIANT_ROW:
+        out = rowdither.row_dither(g2d, u + 0.5, rowdither.ROW_ALPHA)
+    elif pol.variant == VARIANT_MEPROP:
+        out = meprop.meprop_sparsify(g2d, meprop.MEPROP_K_FRAC)
+    else:
+        delta = nsd.compute_delta(g2d, pol.s)
+        k = nsd.nsd_indices(g2d, u, delta)
+        if pol.collect_stats:
+            metrics.emit(name, nsd.quant_stats(k, delta))
+        return (k.to(torch.float32) * delta).to(g2d.dtype)
     if pol.collect_stats:
-        metrics.emit(name, nsd.quant_stats(k, delta))
-    return (k.to(torch.float32) * delta).to(g2d.dtype)
+        _emit_zero_share(out, pol, name)
+    return out
 
 
 def _kernel_products(g2d, x2d, w, noise, pol: DitherPolicy, name: str,
@@ -74,7 +121,8 @@ def _kernel_products(g2d, x2d, w, noise, pol: DitherPolicy, name: str,
     q = ops.quantize_and_mask(g2d, noise, pol.s)
     if pol.collect_stats:
         T, N = g2d.shape
-        metrics.emit(name, nsd.quant_stats(q.k[:T, :N], q.delta))
+        metrics.emit(name,
+                     nsd.quant_stats(q.k[:T, :N], q.delta))
     return ops.bsp_backward_from_quantized(q, x2d, w, need_dx=need_dx)
 
 
@@ -96,7 +144,8 @@ def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
                  else None)
         enc = quant.encode(mode, xr, noise)
     if pol.collect_stats:
-        metrics.emit_memory(name, quant.measured_bytes(mode, enc),
+        metrics.emit_memory(name,
+                            quant.measured_bytes(mode, enc),
                             quant.capacity_bytes(mode, enc),
                             quant.dense_nbytes(x.shape, x.dtype))
     if isinstance(enc, torch.Tensor):
@@ -158,17 +207,72 @@ class _DitheredDense(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         x2d = x.reshape(-1, x.shape[-1])
         g2d = g.reshape(-1, g.shape[-1])
-        if pol.variant == VARIANT_KERNEL:
+        if pol.variant in _KERNEL_DENSE:
             dx2d, dw = _kernel_products(
                 g2d, x2d, w, ctx.dctx.cotangent_dither(name, g2d.shape), pol,
                 name, need_dx)
         else:
             gq = quantize_cotangent(
-                g2d, ctx.dctx.unit_noise(name, g2d.shape), pol, name)
+                g2d, _unit_draw(ctx.dctx, pol, name, g2d.shape), pol, name)
             dx2d = gq @ w.t() if need_dx else None
             dw = x2d.t() @ gq
         dx = dx2d.reshape(x.shape) if need_dx else None
         return dx, dw, None, None, None
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(int(a) for a in v)
+
+
+def _same_pads(size: int, k: int, stride: int, dilation: int
+               ) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis: out = ceil(size / stride), total =
+    max((out - 1) stride + the dilated kernel - size, 0), the odd one at
+    the end."""
+    eff = (k - 1) * dilation + 1
+    total = max((-(-size // stride) - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_pads(padding, hw, khw, stride, dilation
+              ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((top, bottom), (left, right)) of ``padding``: "SAME", "VALID", an
+    int or explicit ((top, bottom), (left, right))."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "SAME":
+            return tuple(_same_pads(hw[i], khw[i], stride[i], dilation[i])
+                         for i in range(2))
+        if mode == "VALID":
+            return (0, 0), (0, 0)
+        raise ValueError(f"conv2d: unknown padding {padding!r}")
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    if len(padding) != 2 or any(isinstance(p, int) or len(p) != 2
+                                for p in padding):
+        raise ValueError(f"conv2d: padding {padding!r} is not "
+                         f"((top, bottom), (left, right))")
+    return tuple((int(a), int(b)) for a, b in padding)
+
+
+def _padded_input(x: torch.Tensor, pads):
+    """(x to convolve, torch's symmetric padding): x itself and (top, left)
+    when the padding is even on both axes, else x padded with ``F.pad``
+    and no padding."""
+    (t, b), (lt, r) = pads
+    if t == b and lt == r:
+        return x, (t, lt)
+    return F.pad(x, (lt, r, t, b)), (0, 0)
+
+
+def _unpad(dx: torch.Tensor, x_shape, pads) -> torch.Tensor:
+    """The gradient of the padded input sliced back to x's."""
+    (t, b), (lt, r) = pads
+    if t == b and lt == r:
+        return dx
+    H, W = x_shape[2:]
+    return dx[:, :, t:t + H, lt:lt + W]
 
 
 class _DitheredConv2d(torch.autograd.Function):
@@ -178,12 +282,15 @@ class _DitheredConv2d(torch.autograd.Function):
         _save_residual(ctx, x, w, pol, dctx, name, conv=True)
         ctx.geom = geom
         ctx.pol, ctx.dctx, ctx.name = pol, dctx, name
-        return F.conv2d(x, w, None, *geom)
+        stride, pads, dilation, groups = geom
+        xp, padding = _padded_input(x, pads)
+        return F.conv2d(xp, w, None, stride, padding, dilation, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = _load_residual(ctx, conv=True)
-        stride, padding, dilation, groups = ctx.geom
+        stride, pads, dilation, groups = ctx.geom
+        xp, padding = _padded_input(x, pads)
         pol, name = ctx.pol, ctx.name
         need_dx = ctx.needs_input_grad[0]
         B, Co, Ho, Wo = g.shape
@@ -192,7 +299,7 @@ class _DitheredConv2d(torch.autograd.Function):
         if pol.variant == VARIANT_KERNEL and groups == 1:
             kh, kw = w.shape[2:]
             # im2col: features in (Ci, kh, kw) order, rows (b, h, w)
-            cols = F.unfold(x, (kh, kw), dilation, padding, stride)
+            cols = F.unfold(xp, (kh, kw), dilation, padding, stride)
             kk, L = cols.shape[1:]
             cols2d = cols.transpose(1, 2).reshape(B * L, kk)
             w_mat = w.reshape(Co, kk).t()
@@ -201,19 +308,21 @@ class _DitheredConv2d(torch.autograd.Function):
                 pol, name, need_dx)
             if need_dx:
                 dx = F.fold(dcols2d.reshape(B, L, kk).transpose(1, 2),
-                            x.shape[2:], (kh, kw), dilation, padding, stride)
+                            xp.shape[2:], (kh, kw), dilation, padding, stride)
             dw = dw_mat.t().reshape(w.shape)
         else:
             if pol.variant == VARIANT_KERNEL:
                 ops.note_fallback("conv:groups", name)
-            gq = quantize_cotangent(g2d, ctx.dctx.unit_noise(name, g2d.shape),
-                                    pol, name)
+            gq = quantize_cotangent(g2d, _unit_draw(ctx.dctx, pol, name,
+                                                   g2d.shape), pol, name)
             gq = gq.reshape(B, Ho, Wo, Co).permute(0, 3, 1, 2)
             if need_dx:
-                dx = torch.nn.grad.conv2d_input(x.shape, w, gq, stride,
+                dx = torch.nn.grad.conv2d_input(xp.shape, w, gq, stride,
                                                 padding, dilation, groups)
-            dw = torch.nn.grad.conv2d_weight(x, w.shape, gq, stride, padding,
+            dw = torch.nn.grad.conv2d_weight(xp, w.shape, gq, stride, padding,
                                              dilation, groups)
+        if dx is not None:
+            dx = _unpad(dx, x.shape, pads)
         return dx, dw, None, None, None, None
 
 
@@ -237,14 +346,18 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            ctx: Optional[DitherCtx] = None, name: str = "conv"
            ) -> torch.Tensor:
     """NCHW x OIHW convolution (+ b); dithered backward when the context's
-    policy covers ``name``. A grouped convolution in the kernel variant is
-    a counted fallback (``ops.KERNEL_FALLBACKS``) to the paper path."""
+    policy covers ``name``. ``padding``: "SAME", "VALID", an int or
+    ((top, bottom), (left, right)) (:func:`conv_pads`). A grouped
+    convolution in the kernel variant is a counted fallback
+    (``ops.KERNEL_FALLBACKS``) to the paper path."""
     pol = ctx.resolve(name) if ctx is not None else None
-    geom = (stride, padding, dilation, groups)
+    pads = conv_pads(padding, x.shape[2:], w.shape[2:], stride, dilation)
     if pol is not None and _differentiable(x, w):
+        geom = (stride, pads, dilation, groups)
         y = _apply_op(lambda xx, ww, p: _DitheredConv2d.apply(xx, ww, geom, p,
                                                               ctx, name),
                       x, w, pol, name)
     else:
-        y = F.conv2d(x, w, None, stride, padding, dilation, groups)
+        xp, tpad = _padded_input(x, pads)
+        y = F.conv2d(xp, w, None, stride, tpad, dilation, groups)
     return y if b is None else y + b.reshape(1, -1, 1, 1)

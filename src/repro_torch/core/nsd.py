@@ -63,15 +63,19 @@ class QuantizedGrad(NamedTuple):
         return (self.k.to(torch.float32) * self.delta).to(dtype)
 
 
+def mask_mean(mask: torch.Tensor) -> torch.Tensor:
+    """The f32 mean of a boolean mask as count * (1/n): the form XLA gives
+    ``jnp.mean``, so the result is the reference's to the bit."""
+    inv_n = 1.0 / torch.tensor(float(mask.numel()), dtype=torch.float32,
+                               device=mask.device)
+    return mask.sum().to(torch.float32) * inv_n
+
+
 def quant_stats(k: torch.Tensor, delta: torch.Tensor) -> QuantStats:
     """Sparsity and worst-case bit-width of an integer index tensor; stays
     on k's device (no host sync)."""
     kf = k.to(torch.int32)
-    # mean as count * (1/n): the form XLA gives jnp.mean, so the f32 result
-    # is the reference's to the bit
-    inv_n = 1.0 / torch.tensor(float(kf.numel()), dtype=torch.float32,
-                               device=kf.device)
-    sparsity = 1.0 - (kf != 0).sum().to(torch.float32) * inv_n
+    sparsity = 1.0 - mask_mean(kf != 0)
     max_abs = kf.abs().max().to(torch.float32)
     # bits = ceil(log2(max|k| + 1)) + 1 sign bit; 0 bits when all-zero
     bits = torch.where(max_abs > 0, torch.ceil(torch.log2(max_abs + 1.0)) + 1.0,

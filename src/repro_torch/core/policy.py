@@ -1,9 +1,17 @@
 """Dither policy and the per-step context threaded through a model.
 
-Counterpart of ``repro.core.policy`` for the variants this port has so far:
+Counterpart of ``repro.core.policy`` (the plain global policy: the port has
+no knob schedules: ``s`` is a Python number, and the ``row`` and ``meprop``
+variants run at the reference's default ``row_alpha`` and
+``meprop_k_frac``, ``rowdither.ROW_ALPHA`` and ``meprop.MEPROP_K_FRAC``):
 
 * ``off``    plain backprop (the paper's baseline column);
 * ``paper``  NSD on the pre-activation gradient, products in f32;
+* ``int8``   NSD + int8 products (Table 1's 8-bit + dithered column): a
+             dense layer's products on the int8 kernel, a convolution's on
+             the generic path, as in the reference;
+* ``row``    structured row dither (``repro_torch.core.rowdither``);
+* ``meprop`` the top-k comparator (``repro_torch.core.meprop``);
 * ``kernel`` NSD + tile-skipping int8 products on the CUDA kernels.
 
 Noise. ``jax.random``'s ``fold_in`` chain cannot be reproduced in torch,
@@ -46,8 +54,12 @@ from repro_torch.quant.codecs import MODE_FP32, RESID_SALT, validate_mode
 
 VARIANT_OFF = "off"
 VARIANT_PAPER = "paper"
+VARIANT_INT8 = "int8"
+VARIANT_ROW = "row"
+VARIANT_MEPROP = "meprop"
 VARIANT_KERNEL = "kernel"
-VARIANTS = (VARIANT_OFF, VARIANT_PAPER, VARIANT_KERNEL)
+VARIANTS = (VARIANT_OFF, VARIANT_PAPER, VARIANT_INT8, VARIANT_ROW,
+            VARIANT_MEPROP, VARIANT_KERNEL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +91,6 @@ class DitherPolicy:
 
     def replace(self, **kw) -> "DitherPolicy":
         return dataclasses.replace(self, **kw)
-
 
 
 def name_salt(name: str) -> int:

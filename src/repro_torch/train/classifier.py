@@ -3,7 +3,9 @@
 Counterpart of ``benchmarks/harness.py::train_classifier``: SGD with
 momentum 0.9, weight decay 5e-4 and a step schedule (x0.1 at half the
 steps); one untimed warm-up step (step 0), then steps 1..steps-1 timed on
-the host clock around work that ends in a device synchronise.
+the host clock around work that ends in a device synchronise. And of its
+``measure_baseline_sparsity``: Table 1's baseline sparsity, through the
+tap probe (``repro_torch.core.probe``).
 
     python -m repro_torch.train.classifier --model vgg11-cifar \\
         --variant kernel --steps 5 --batch 128 --memory-program default=nsd
@@ -21,14 +23,16 @@ import math
 import time
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.paper_models import MODELS
+from repro_torch.core import probe
 from repro_torch.core.policy import VARIANTS, DitherCtx, DitherPolicy
 from repro_torch.data.synthetic import ClassifConfig, classification_batch
 from repro_torch.device import resolve_device
 from repro_torch.memory.policy import MemoryPolicy, as_memory_policy
-from repro_torch.models.cnn import CNN, CNNConfig, accuracy, loss_fn
+from repro_torch.models.cnn import CNN, CNNConfig, accuracy, loss_fn, tap_shapes
 from repro_torch.obs import metrics
 from repro_torch.optim.optimizers import OptConfig, apply_updates, init_opt_state
 
@@ -99,6 +103,28 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
         if memory is not None and metrics.memory_tags():
             out["residual_compression"] = metrics.overall_residual_compression()
     return out
+
+
+def measure_baseline_sparsity(model: CNNConfig, *, steps: int = 5,
+                              batch: int = 64, noise: float = 0.5,
+                              seed: int = 0,
+                              device: Optional[torch.device] = None) -> float:
+    """Sparsity (%) of the raw pre-activation gradients under plain
+    backprop, the mean over every tapped layer and step: Table 1's
+    baseline sparsity column."""
+    dev = resolve_device(device)
+    net = CNN(model, seed=seed, device=dev)
+    dcfg = ClassifConfig(n_classes=model.n_classes, img_size=model.img_size,
+                         channels=model.in_channels, noise=noise, seed=seed)
+    shapes = tap_shapes(model, batch)
+    sps = []
+    for i in range(steps):
+        b = classification_batch(dcfg, i, batch, device=dev)
+        grads = probe.grad_wrt_taps(
+            lambda taps: loss_fn(net, b, taps=taps),
+            probe.make_taps(shapes, device=dev))
+        sps.extend(float(probe.baseline_sparsity(g)) for g in grads.values())
+    return float(np.mean(sps)) * 100
 
 
 def main(argv=None) -> None:

@@ -474,3 +474,52 @@ def test_split_dequant_is_deterministic(cuda):
     first = bsp_matmul.bsp_matmul(a, delta, b, mask, trans_a=True)
     second = bsp_matmul.bsp_matmul(a, delta, b, mask, trans_a=True)
     assert splits > 1 and torch.equal(first, second)
+
+
+# The dense cotangents of the Table-1 models at batch 64: T = 64 rows, less
+# than one 128-row tile, at widths of one half-live 4-column group (LeNet5's
+# c1 has 6 channels), 84 (LeNet5's fc2) and 500 (the MLP's hidden layers).
+@pytest.mark.parametrize("N", [6, 84, 500])
+@pytest.mark.parametrize("route", ["key", "fed"])
+def test_nsd_kernel_at_table1_widths(cuda, N, route):
+    g = _rand((64, N), cuda, N) * 1e-3
+    delta = (2.0 * g.std(correction=0)).reshape(())
+    key = 0x5DEECE66D
+    kw = ({"key": key} if route == "key" else
+          {"noise": nsd_quant.philox_uniform_plain(key, g.shape, device=cuda) * delta})
+    before = build.LAUNCHES["nsd_quant"]
+    got = nsd_quant.nsd_quantize(g, delta, **kw)
+    assert build.LAUNCHES["nsd_quant"] == before + 1
+    want = nsd_quant.nsd_quantize_plain(g, delta, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got.k.shape == (128, -(-N // 128) * 128)
+    assert not got.k[64:].any() and not got.k[:, N:].any()
+
+
+@pytest.mark.parametrize("tkn", [(64, 784, 500), (64, 120, 84), (37, 300, 6)])
+def test_int8_variant_dense_products(cuda, tkn):
+    """variant="int8" on a dense layer: one NSD launch and two int8
+    products, bit for bit the plain versions' on the same cotangent, Delta
+    and key."""
+    T, K, N = tkn
+    x = _rand((T, K), cuda, 1).requires_grad_()
+    w = (_rand((K, N), cuda, 2) * 0.1).requires_grad_()
+    g = _rand((T, N), cuda, 3) * 0.1
+    ctx = DitherCtx(DitherPolicy(variant="int8", s=2.0), seed=5, step=1)
+    before = dict(build.LAUNCHES)
+    dithered.dense(x, w, ctx=ctx, name="fc").backward(g)
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]}
+    assert launched == {"nsd_quant": 1, "bsp_matmul_int8": 2}
+    from repro_torch.core.int8 import absmax_int8
+
+    delta = 2.0 * g.std(correction=0)
+    q = nsd_quant.nsd_quantize_plain(g, delta, key=ctx.cotangent_key("fc"))
+    pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+        t, (0, -t.shape[1] % 128, 0, -t.shape[0] % 128)).contiguous()
+    xq, wq = absmax_int8(x.detach()), absmax_int8(w.detach())
+    dx = bsp_matmul.bsp_matmul_int8_plain(q.k, pad(wq.q), delta * wq.scale, q.mask,
+                                          trans_b=True)[:T, :K]
+    dw = bsp_matmul.bsp_matmul_int8_plain(q.k, pad(xq.q), delta * xq.scale, q.mask,
+                                          trans_a=True)[:N, :K].t()
+    assert torch.equal(x.grad, dx)
+    assert torch.equal(w.grad, dw)
