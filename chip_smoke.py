@@ -111,13 +111,36 @@ Phases (any failure exits non-zero and prints no result):
   5d. time the fp32-residual and the nsd forward+backward step in turns
      (host clock around synchronised steps, median of 15 each) and print
      the nsd step's excess;
-  6. print one JSON line naming the seven kernels (the NSD row carries its
+  6. data-parallel SSGD on simulated nodes with the compressed gradient
+     wire (``repro_torch.distributed``, ``repro_torch.comm``):
+     6a. fixed node gradients (nsd, int8, topk_ef and dense leaves, among
+         them a 500-element bias, a 500 x 10 leaf and a 257-element leaf
+         whose node slices are not 16-byte aligned) through ``ps`` at N = 4
+         and the ring at N = 2, 3, 4, 8, kernel route against plain route:
+         mean, every pack's levels, bitmap, deltas and nnz, wire_bytes,
+         dense_bytes and error_bound bit for bit, and the launches the code
+         implies (ps: N NSD per nsd and int8 leaf, N compact and expand per
+         nsd leaf; ring: N^2 NSD, compact and expand per compressed leaf);
+     6b. ``make_ssgd_step`` at full width, variant=kernel, 32 images a
+         node: VGG11-CIFAR at N = 4 under ``ps`` and ``ring`` and
+         MLP-(500, 500) at N = 1, 2, 4 under ``ps``, 3 steps each; every
+         node's step-0 gradients against the plain versions' (relative L2
+         <= 1e-5), the exact launches of every step (a node's backward as
+         in phases 4 and 4e, plus the comm packs), and per step the host
+         time, the grad / reduce / update spans (CUDA events around the
+         step's ``record_function`` spans), the comm bytes and error bound
+         and the peak device memory above what was held before the step;
+     6c. ``python -m repro_torch.train.distributed_nodes --check
+         benchmarks/baselines/BENCH_distributed_nodes.json`` through its
+         ``main``: the ``fig5-6/N=1,2,4`` and ``topology/ring/N=8`` rows
+         within the reference's gates, the rest named as not ported;
+  7. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
      element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e and 4f);
-  7. print the JSON result line last.
+     runs of phases 4e, 4f, 6b and 6c);
+  8. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -185,6 +208,23 @@ TABLE1_SEEDS = tuple(range(48))
 TABLE1_REFERENCE_SEEDS = 24
 TABLE1_REFERENCE = "src/repro_torch/bench/baselines/table1_cifar_reference.json"
 MEMORY = "default=nsd"
+# phase 6: node gradients (random, fixed by the seed) through the reduce on
+# both routes: nsd, int8, topk_ef and dense leaves, a 257-element leaf whose
+# node slices are not 16-byte aligned, a 500-element bias and a 500 x 10 leaf
+REDUCE_LEAVES = {"c3_w": (256, 128, 3, 3), "fc0_w": (512, 512), "fc0_b": (512,),
+                 "fc1_w": (512, 512), "fc2_w": (500, 10), "b500": (500,),
+                 "b257": (257,), "c0_b": (64,)}
+REDUCE_OVERRIDES = (("fc1", "int8"), ("fc0_b", "topk_ef"))
+PS_NODES, RING_NODES = 4, (2, 3, 4, 8)
+# the SSGD runs of 6b: (model, nodes, topology, steps), 32 images a node
+SSGD_NODE_BATCH = 32
+SSGD_RUNS = (("vgg11-cifar", 4, "ps", 3), ("vgg11-cifar", 4, "ring", 3),
+             ("mlp-mnist", 1, "ps", 3), ("mlp-mnist", 2, "ps", 3),
+             ("mlp-mnist", 4, "ps", 3))
+# a node's backward, variant=kernel (phases 4 and 4e)
+SSGD_PER_NODE = {"vgg11-cifar": PER_STEP, "mlp-mnist": NEW_MODELS["mlp-mnist"]}
+DIST_BASELINE = "benchmarks/baselines/BENCH_distributed_nodes.json"
+
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
 COMPRESSION_BAND = 1e-6  # relative, kernels vs plain versions
@@ -227,7 +267,8 @@ def f32_band(K: int) -> float:
     return 8 * math.sqrt(K) * 2.0 ** -24
 
 
-def profile_step(torch, step_fn, card, label, steps=3):
+def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
+                 what=f"forward+backward of one batch-{BATCH} step"):
     """Print the device time per step of the top kernels, of the port's
     kernels, and the device's busy share of the wall time, from
     torch.profiler over ``steps`` forward+backward passes. Informational:
@@ -249,17 +290,20 @@ def profile_step(torch, step_fn, card, label, steps=3):
         # time, the kernels it launched, and would be counted twice
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
+        if e.key.startswith("ssgd/"):  # a record_function span's device range
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
     if not rows:
-        log(f"phase 5b ({label}): torch.profiler recorded no device time: not measured")
+        log(f"phase {phase} ({label}): torch.profiler recorded no device time: "
+            f"not measured")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"phase 5b ({label}): forward+backward of one batch-{BATCH} step: wall "
+    log(f"phase {phase} ({label}): {what}: wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
         f"{sum(r[1] for r in rows)} device kernels launched ({card})")
     # a matmul's name also matches its split-K reduce kernel, listed after it;
@@ -285,6 +329,223 @@ def profile_step(torch, step_fn, card, label, steps=3):
         f"{sum(h[1] for h in host)} recorded ops, under the profiler")
     for ms, n, key in host[:8]:
         log(f"  host {ms:9.4f} ms  x{n:<4d} {key[:80]}")
+
+
+def phase6(torch, card, dev, plain_kernels, worst_rel):
+    """Phase 6: the compressed reduce on both routes (6a), the SSGD step at
+    full width on variant=kernel (6b) and the figs. 5/6 rows (6c). Returns
+    the launches of each SSGD path by kernel, for the kernels line."""
+    from repro_torch import comm
+    from repro_torch.configs import paper_models
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.data.synthetic import ClassifConfig, classification_batch
+    from repro_torch.distributed import SSGDConfig, make_ssgd_step, shard_batch
+    from repro_torch.distributed import ssgd as ssgd_mod
+    from repro_torch.kernels import build
+    from repro_torch.models.cnn import CNN
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+    from repro_torch.quant import wire
+    from repro_torch.train import distributed_nodes
+
+    def nonzero(launches):
+        return {k: v for k, v in launches.items() if v}
+
+    @contextlib.contextmanager
+    def no_host_sync():
+        """Raise on any operation that synchronises the host with the
+        device (torch's sync debug mode)."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def reduce_both_routes(red, g, label):
+        """``red.reduce(g)`` on the kernel route (no host sync allowed) and
+        on the plain route: the mean, every pack's levels, bitmap, deltas
+        and nnz, and the wire bytes, dense bytes and error bound bit for
+        bit. Returns the kernel route's telemetry, packs and launches."""
+        runs = []
+        for route in ("kernel", "plain"):
+            packs = []
+            real_pack = wire.pack_nsd
+
+            def recording_pack(*a, **kw):
+                packs.append(real_pack(*a, **kw))
+                return packs[-1]
+
+            ctx = plain_kernels() if route == "plain" else no_host_sync()
+            torch.cuda.synchronize()
+            build.reset_launches()
+            wire.pack_nsd = recording_pack
+            try:
+                with ctx:
+                    out, tele, _ = red.reduce(g, SEED, 1)
+            finally:
+                wire.pack_nsd = real_pack
+            torch.cuda.synchronize()
+            runs.append((out, tele, packs, dict(build.LAUNCHES)))
+        (out_k, tele_k, packs_k, launches), (out_p, tele_p, packs_p, lp) = runs
+        check(not any(lp.values()), f"{label}: plain route launched {lp}")
+        for name in g:
+            check(torch.equal(out_k[name], out_p[name]),
+                  f"{label}: mean of {name} differs between routes")
+        check(len(packs_k) == len(packs_p), f"{label}: pack counts differ")
+        for pk, pp in zip(packs_k, packs_p):
+            for f in ("levels", "bitmap", "deltas", "nnz"):
+                check(torch.equal(getattr(pk, f), getattr(pp, f)),
+                      f"{label}: pack {f} differs between routes")
+        for f in ("wire_bytes", "dense_bytes", "error_bound"):
+            check(float(getattr(tele_k, f)) == float(getattr(tele_p, f)),
+                  f"{label}: {f} {float(getattr(tele_k, f))} vs "
+                  f"{float(getattr(tele_p, f))}")
+        return tele_k, packs_k, launches
+
+    # -- 6a: fixed node gradients through ps and the ring, kernel route
+    # against the plain route: bit for bit, with the launches the code implies
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_max = max(max(RING_NODES), PS_NODES)
+    grads = {name: torch.randn((n_max,) + shape, device=dev, generator=gen) * 1e-2
+             for name, shape in REDUCE_LEAVES.items()}
+    for topology, n in [("ps", PS_NODES)] + [("ring", n) for n in RING_NODES]:
+        pol = comm.CommPolicy(s=2.0, topology=topology, overrides=REDUCE_OVERRIDES)
+        g = {k: v[:n].contiguous() for k, v in grads.items()}
+        tele_k, packs_k, launches = reduce_both_routes(
+            comm.reducer(pol, n_nodes=n), g, f"6a {topology} N={n}")
+        modes = [pol.mode_for(k, v[0].numel()) for k, v in g.items()]
+        if topology == "ps":
+            packed = n * modes.count("nsd")
+            want = {"nsd_quant": packed + n * modes.count("int8"),
+                    "levels_compact": packed, "levels_expand": packed}
+        else:  # int8 and topk_ef leaves travel as nsd on the ring
+            packed = n * n * sum(m != "dense" for m in modes)
+            want = {"nsd_quant": packed, "levels_compact": packed,
+                    "levels_expand": packed}
+        check(nonzero(launches) == want,
+              f"6a {topology} N={n}: launches {nonzero(launches)}, want {want}")
+        log(f"phase 6a: {topology} N={n}: mean, levels, bitmap, deltas, nnz, "
+            f"wire_bytes {float(tele_k.wire_bytes)}, dense_bytes "
+            f"{float(tele_k.dense_bytes)}, error_bound {float(tele_k.error_bound)} "
+            f"bit-exact between the kernel and plain routes over {len(packs_k)} "
+            f"packs, the kernel route without a host sync; launches "
+            f"{nonzero(launches)}")
+
+    # -- 6b: the SSGD step at full width, variant=kernel, timed by span
+    spans = []
+    real_span = ssgd_mod.record_function
+
+    @contextlib.contextmanager
+    def timed_span(name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with real_span(name):
+            a.record()
+            yield
+            b.record()
+        spans.append((name.split("/")[-1], a, b))
+
+    path_launches = {}
+    for mname, n, topology, steps in SSGD_RUNS:
+        mcfg = paper_models.MODELS[mname]()
+        net = CNN(mcfg, seed=SEED)
+        dcfg = SSGDConfig(n_nodes=n, s_schedule="sqrt", s_base=2.0)
+        cpol = comm.CommPolicy(default="nsd", s=dcfg.s_for_n(), topology=topology)
+        step, _ = make_ssgd_step(net, OptConfig(lr=0.05, momentum=0.9,
+                                                weight_decay=5e-4), dcfg,
+                                 DitherPolicy(variant="kernel"), cpol)
+        data = ClassifConfig(n_classes=mcfg.n_classes, img_size=mcfg.img_size,
+                             channels=mcfg.in_channels, noise=0.5, seed=SEED)
+        label = f"ssgd {mname} {topology} N={n} kernel"
+        b0 = shard_batch(classification_batch(data, 0, SSGD_NODE_BATCH * n), n)
+        _, gk = step.node_grads(b0, SEED, 0)
+        with plain_kernels():
+            build.reset_launches()
+            _, gp = step.node_grads(b0, SEED, 0)
+            check(not any(build.LAUNCHES.values()), "plain run launched a kernel")
+        worst = worst_rel({f"{k}[{w}]": v[w] for k, v in gk.items() for w in range(n)},
+                          {f"{k}[{w}]": v[w] for k, v in gp.items() for w in range(n)},
+                          label)
+        del gp
+        n_comp = sum(cpol.mode_for(k, p.numel()) != "dense"
+                     for k, p in net.named_parameters())
+        packs = n * n_comp if topology == "ps" else n * n * n_comp
+        if mname == "vgg11-cifar":
+            # the reduce of this run's own node gradients (whole VGG11
+            # leaves under ps, ~590k-element segments on the ring) on both
+            # routes
+            tele_k, packs_k, got = reduce_both_routes(step.reducer, gk, label)
+            want = {"nsd_quant": packs, "levels_compact": packs,
+                    "levels_expand": packs}
+            check(nonzero(got) == want,
+                  f"{label}: reduce launches {nonzero(got)}, want {want}")
+            log(f"phase 6b: {label}: the reduce of the step-0 node gradients "
+                f"bit-exact between the kernel and plain routes over "
+                f"{len(packs_k)} packs (largest {max(math.prod(p.shape) for p in packs_k)} "
+                f"elements): mean, levels, bitmap, deltas, nnz, wire_bytes "
+                f"{float(tele_k.wire_bytes)}, error_bound "
+                f"{float(tele_k.error_bound)}")
+        del gk
+        per_node = SSGD_PER_NODE[mname]
+        want = {"nsd_quant": n * per_node["nsd_quant"] + packs,
+                "bsp_matmul_int8": n * per_node["bsp_matmul_int8"],
+                "levels_compact": packs, "levels_expand": packs}
+        state = init_opt_state(dict(net.named_parameters()))
+        total = {k: 0 for k in build.LAUNCHES}
+        ssgd_mod.record_function = timed_span
+        try:
+            for i in range(steps):
+                b = shard_batch(classification_batch(data, i, SSGD_NODE_BATCH * n), n)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                spans.clear()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                m, _ = step(state, b, SEED)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                got = dict(build.LAUNCHES)
+                for k, v in got.items():
+                    total[k] += v
+                check(math.isfinite(float(m["loss"])), f"{label}: loss {m['loss']}")
+                check(nonzero(got) == want,
+                      f"{label} step {i}: launches {nonzero(got)}, want {want}")
+                split = {name: round(a.elapsed_time(b_), 3) for name, a, b_ in spans}
+                log(f"phase 6b: {label} step {i}: {wall:.3f} ms on the host clock, "
+                    f"spans (CUDA events) {split}; loss {float(m['loss']):.5f}; "
+                    f"launches {nonzero(got)}; comm_wire_bytes "
+                    f"{float(m['comm_wire_bytes'])}, comm_dense_bytes "
+                    f"{float(m['comm_dense_bytes'])}, comm_error_bound "
+                    f"{float(m.get('comm_error_bound', 0.0))}; peak device memory "
+                    f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
+                    f"above the {held / 2**20:.1f} MiB held before the step ({card})")
+        finally:
+            ssgd_mod.record_function = real_span
+        path_launches[label] = total
+        log(f"phase 6b: {label}: node gradients at batch {SSGD_NODE_BATCH} a node "
+            f"against the plain versions: worst relative L2 {worst}")
+        if mname == "vgg11-cifar":
+            b = shard_batch(classification_batch(data, 0, SSGD_NODE_BATCH * n), n)
+            profile_step(torch, lambda: step(state, b, SEED), card, label,
+                         steps=2, phase="6b", what=f"one SSGD step of {n} nodes")
+        del step, net, state
+
+    # -- 6c: the figs. 5/6 rows through the CLI, gated against the
+    # reference's committed baseline
+    build.reset_launches()
+    rc = distributed_nodes.main(["--check", str(Path(__file__).resolve().parent
+                                                / DIST_BASELINE)])
+    got = dict(build.LAUNCHES)
+    check(rc == 0, "distributed_nodes --check: the figs. 5/6 rows miss the "
+                   "reference's gates")
+    check(got["nsd_quant"] > 0 and got["levels_compact"] == got["nsd_quant"]
+          and got["levels_expand"] == got["nsd_quant"]
+          and got["philox_uniform"] > 0 and got["bsp_matmul_int8"] == 0,
+          f"distributed_nodes launches {nonzero(got)}")
+    path_launches["figs5-6 paper ps N=1,2,4 + ring N=8"] = got
+    log(f"phase 6c: distributed_nodes --check {DIST_BASELINE}: launches "
+        f"{nonzero(got)} ({card})")
+    return path_launches
 
 
 def main() -> int:
@@ -1358,7 +1619,15 @@ def main() -> int:
     profile_step(torch, f32_operand_backward, card,
                  "f32-operand backward of the 11 layers")
 
-    # -- phases 6 and 7 ----------------------------------------------------
+    # -- phase 6: data-parallel SSGD on simulated nodes, the comm wire -----
+    t_phase = time.perf_counter()
+    ssgd_launches = phase6(torch, card, dev, plain_kernels, worst_rel)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in ssgd_launches.items()})
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+    # -- phases 7 and 8 ----------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

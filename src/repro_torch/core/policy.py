@@ -108,6 +108,13 @@ def _splitmix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
+def fold_in(key: int, value: int) -> int:
+    """A new 63-bit stream key from ``key`` and an integer: the int-key
+    counterpart of ``jax.random.fold_in`` (a splitmix64 mix of the key,
+    xor the value, mixed again)."""
+    return _splitmix64(_splitmix64(key & _MASK64) ^ (value & _MASK64)) >> 1
+
+
 def layer_seed(seed: int, step: int, worker: int, name: str) -> int:
     """The 63-bit stream key of one (seed, step, worker, layer)."""
     h = _splitmix64(seed & _MASK64)

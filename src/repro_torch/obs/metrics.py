@@ -1,6 +1,6 @@
-"""Dither and residual-memory telemetry.
+"""Dither, residual-memory and comm telemetry.
 
-Counterpart of the ``"dither"`` and ``"memory"`` streams of
+Counterpart of the ``"dither"``, ``"memory"`` and ``"comm"`` streams of
 ``repro.obs.metrics``, with the calls the training harness reads:
 
 * each backward appends one row ``[sparsity, bits, delta]`` per dithered
@@ -8,7 +8,9 @@ Counterpart of the ``"dither"`` and ``"memory"`` streams of
 * each forward that saves a residual for a backward appends one row
   ``[measured, capacity, dense]`` bytes per dithered layer
   (:func:`emit_memory`): the wire-equivalent occupancy, the device-resident
-  capacity of the encoding, and the dense store it replaces.
+  capacity of the encoding, and the dense store it replaces;
+* each compressed gradient exchange appends one row ``[wire, dense]``
+  bytes (:func:`emit_comm`, through ``repro_torch.comm.telemetry``).
 
 Rows stay device tensors until a reader asks, so emitting costs no host
 sync. The store is module state shared by the process, like the reference's
@@ -25,11 +27,13 @@ from repro_torch.core.nsd import QuantStats
 
 _ROWS: Dict[str, List[torch.Tensor]] = {}
 _MEMORY: Dict[str, List[torch.Tensor]] = {}
+_COMM: Dict[str, List[torch.Tensor]] = {}
 
 
 def reset() -> None:
     _ROWS.clear()
     _MEMORY.clear()
+    _COMM.clear()
 
 
 def emit(tag: str, stats: QuantStats) -> None:
@@ -126,3 +130,42 @@ def overall_residual_compression() -> float:
     if stored <= 0:
         return float("nan")
     return dense / stored
+
+
+# ---------------------------------------------------------------------------
+# comm counters: bytes on the wire of a compressed gradient exchange
+# ---------------------------------------------------------------------------
+
+def emit_comm(tag: str, wire_bytes: torch.Tensor,
+              dense_bytes: torch.Tensor) -> None:
+    """Record one exchange's (wire, dense) byte counts, 0-d f32 tensors that
+    stay on their device until a reader asks."""
+    _COMM.setdefault(tag, []).append(torch.stack([wire_bytes, dense_bytes]))
+
+
+def comm_tags() -> List[str]:
+    return list(_COMM)
+
+
+def comm_rows(tag: str) -> np.ndarray:
+    """(n, 2) f32 array of [wire_bytes, dense_bytes] records for a tag."""
+    if not _COMM.get(tag):
+        return np.zeros((0, 2), np.float32)
+    return torch.stack(_COMM[tag]).cpu().numpy()
+
+
+def comm_summary() -> Dict[str, Dict[str, float]]:
+    """Per-tag total wire and dense bytes and the compression ratio."""
+    out = {}
+    for tag in comm_tags():
+        r = comm_rows(tag)
+        if len(r) == 0:
+            continue
+        wire, dense = float(r[:, 0].sum()), float(r[:, 1].sum())
+        out[tag] = {
+            "wire_bytes": wire,
+            "dense_bytes": dense,
+            "ratio": wire / dense if dense else float("nan"),
+            "n_records": int(len(r)),
+        }
+    return out

@@ -4,7 +4,8 @@ Counterpart of ``repro.quant`` for the five residual modes:
 
     spec.py      QuantSpec IR
     registry.py  Codec base class, registration, the parse_spec front door
-    codecs.py    fp32 / remat / bf16 / int8 / nsd and the facade below
+    codecs.py    fp32 / remat / bf16 / int8 / nsd, the facade below and
+                 nsd_int8 (the comm wire's dense int8 mode)
     wire.py      the packed NSD wire layout (bitmap + compacted levels),
                  plain and kernel routes
 """
@@ -25,6 +26,7 @@ from repro_torch.quant.codecs import (
     encode,
     measured_bytes,
     needs_noise,
+    nsd_int8,
     parse_mode,
     quantize,
     stored_nbytes,
@@ -43,7 +45,7 @@ from repro_torch.quant.spec import QuantSpec
 __all__ = [
     "DEFAULT_NSD_S", "MODE_BF16", "MODE_FP32", "MODE_INT8", "MODE_NSD",
     "MODE_REMAT", "MODES", "RESID_SALT", "Bf16Residual", "Int8Residual",
-    "capacity_bytes", "decode", "encode", "measured_bytes", "needs_noise",
+    "capacity_bytes", "decode", "encode", "measured_bytes", "needs_noise", "nsd_int8",
     "parse_mode", "quantize", "stored_nbytes", "validate_mode",
     "Codec", "codec_names", "dense_nbytes", "get_codec", "parse_spec",
     "register", "QuantSpec", "wire",

@@ -12,7 +12,9 @@ Counterpart of ``repro.quant.codecs`` for the five residual modes
     nsd[@S]      the paper's operator in the wire layout
                  (``repro_torch.quant.wire``), s = S (default 1.0)
 
-``int8_absmax``, ``int4@gG``, ``m8`` and ``u8`` are not ported yet.
+and ``nsd_int8``, NSD to a dense (int8 k, f32 Delta) pair (the comm
+wire's ``int8`` mode). ``int8_absmax``, ``int4@gG``, ``m8`` and ``u8`` are
+not ported yet.
 
 A conv residual is encoded in the reference's NHWC order (the caller
 permutes), so an ``nsd`` container is byte-identical to the reference's and
@@ -25,6 +27,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core import nsd
 from repro_torch.quant import wire
 from repro_torch.quant.registry import (Codec, _nelems, as_dtype,
                                         dense_nbytes, dtype_name, get_codec,
@@ -99,6 +102,18 @@ class RematMode(Fp32Codec):
     and dense accounting here (remat keeps the op's inputs alive)."""
 
     name = "remat"
+
+
+def nsd_int8(x: torch.Tensor, noise: Union[int, torch.Tensor], s: float
+             ) -> nsd.QuantizedGrad:
+    """NSD to (int8 k of x's shape, f32 Delta = s * std(x)): the dense
+    counterpart of the wire's ``pack_nsd``, the same k for the same
+    ``noise`` (a stream key or the unit draw u); one NSD launch on a CUDA
+    tensor."""
+    delta = nsd.compute_delta(x, s).reshape(())
+    k2d = wire.quantize_chunks(x, noise, delta)
+    return nsd.QuantizedGrad(k=k2d.reshape(-1)[:x.numel()].reshape(x.shape),
+                             delta=delta)
 
 
 class Bf16Codec(Codec):

@@ -197,38 +197,55 @@ def pack_indices(k: torch.Tensor, delta: torch.Tensor, shape, dtype, *,
                      dtype=dtype_name(dtype))
 
 
-def pack_nsd(x: torch.Tensor, noise: Union[int, torch.Tensor], s: float, *,
-             backend: str = "kernel",
-             delta: Optional[torch.Tensor] = None) -> PackedNSD:
-    """NSD-quantize ``x`` and lay it out in wire format: Delta = s * std(x)
-    (population std, f32) unless ``delta`` is given,
-    k = clip(floor((x + u * Delta) / Delta + 1/2), +-127) over the flat
-    (row-major) order of ``x``, with ``noise`` either the unit draw u (x's
-    shape) or a stream key whose draw is :func:`unit_draw`.
+def quantize_chunks(x: torch.Tensor, noise: Union[int, torch.Tensor],
+                    delta: torch.Tensor, *, backend: str = "kernel"
+                    ) -> torch.Tensor:
+    """NSD indices k = clip(floor((x + u * Delta) / Delta + 1/2), +-127) of
+    x's flat (row-major) order, laid out as the zero-padded (n_chunks,
+    DEFAULT_CHUNK) int8 view; ``noise`` is the unit draw u (x's shape) or a
+    stream key whose draw is :func:`unit_draw`, ``delta`` a scalar f32.
 
-    The kernel route runs one NSD launch on x as it stands (zeros in the
-    padding of the last chunk) and lays its k out with one launch of the
-    wire compact kernel.
+    The kernel route is one NSD launch on x as it stands (zeros in the
+    padding of the last chunk). A CUDA view whose data is not 16-byte
+    aligned (a node's slice of a stacked leaf whose size is not a multiple
+    of 4) is copied first: the kernel's vector loads need the alignment.
     """
     from repro_torch.kernels import nsd_quant
 
     fed = isinstance(noise, torch.Tensor)
     if fed and noise.shape != x.shape:
-        raise ValueError(f"pack_nsd: noise {tuple(noise.shape)} is not the "
-                         f"shape of x {tuple(x.shape)}")
-    kernel = _check_backend(backend)
+        raise ValueError(f"NSD: noise {tuple(noise.shape)} is not the shape "
+                         f"of x {tuple(x.shape)}")
+    delta = delta.to(torch.float32).reshape(())
+    if not _check_backend(backend):
+        u = noise if fed else nsd_quant.philox_uniform_plain(
+            noise, x.shape, cols=DEFAULT_CHUNK, device=x.device)
+        return _chunk_view(nsd.nsd_indices(x, u, delta).to(torch.int8)
+                           .reshape(-1))
+    xf = x.to(torch.float32).contiguous()
+    if xf.device.type == "cuda" and xf.data_ptr() % 16:
+        xf = xf.clone()
+    route = {"noise": nsd.dither_noise(noise, delta)} if fed else {"key": noise}
+    q = nsd_quant.nsd_quantize(xf, delta, cols=DEFAULT_CHUNK, bitmap=False,
+                               **route)
+    return q.k[:-(-x.numel() // DEFAULT_CHUNK)]
+
+
+def pack_nsd(x: torch.Tensor, noise: Union[int, torch.Tensor], s: float, *,
+             backend: str = "kernel",
+             delta: Optional[torch.Tensor] = None) -> PackedNSD:
+    """NSD-quantize ``x`` and lay it out in wire format: Delta = s * std(x)
+    (population std, f32) unless ``delta`` is given, k by
+    :func:`quantize_chunks` with ``noise`` (the unit draw u of x's shape, or
+    a stream key).
+
+    The kernel route runs one NSD launch on x as it stands and lays its k
+    out with one launch of the wire compact kernel.
+    """
     if delta is None:
         delta = nsd.compute_delta(x, s)
     delta = delta.to(torch.float32).reshape(())
-    if not kernel:
-        u = noise if fed else nsd_quant.philox_uniform_plain(
-            noise, x.shape, cols=DEFAULT_CHUNK, device=x.device)
-        return pack_indices(nsd.nsd_indices(x, u, delta), delta, x.shape,
-                            x.dtype, backend=backend)
-    route = {"noise": nsd.dither_noise(noise, delta)} if fed else {"key": noise}
-    q = nsd_quant.nsd_quantize(x.to(torch.float32).contiguous(), delta,
-                               cols=DEFAULT_CHUNK, bitmap=False, **route)
-    k2d = q.k[:-(-x.numel() // DEFAULT_CHUNK)]
+    k2d = quantize_chunks(x, noise, delta, backend=backend)
     return pack_indices(k2d, delta, x.shape, x.dtype, backend=backend)
 
 

@@ -293,6 +293,42 @@ def test_nsd_codec_kernel_route_matches_plain_route(cuda):
     assert torch.equal(out, quant.wire.unpack_nsd(want, backend="plain"))
 
 
+@pytest.mark.parametrize("case", ["segment", "bias500", "leaf500x10",
+                                  "unaligned257"])
+@pytest.mark.parametrize("route", ["key", "fed"])
+def test_pack_nsd_on_comm_leaves_matches_plain(cuda, case, route):
+    """The comm wire's inputs: a 1-D ring segment (a chunk multiple), a
+    500-element bias, a 500 x 10 leaf, and a node's slice of a stacked
+    257-element leaf (its data 4-byte aligned only, copied before the NSD
+    launch): kernel route byte-identical to the plain route, and the
+    decode too; one NSD, one compact and one expand launch."""
+    if case == "unaligned257":
+        x = (_rand((2, 257), cuda, 20) * 0.01)[1]
+        assert x.data_ptr() % 16
+    else:
+        shape = {"segment": (2048,), "bias500": (500,),
+                 "leaf500x10": (500, 10)}[case]
+        x = _rand(shape, cuda, 21) * 0.01
+    noise = 777 if route == "key" else torch.rand(x.shape, device=cuda) - 0.5
+    build.reset_launches()
+    p = quant.wire.pack_nsd(x, noise, 2.0)
+    out = quant.wire.unpack_nsd(p)
+    assert (build.LAUNCHES["nsd_quant"], build.LAUNCHES["levels_compact"],
+            build.LAUNCHES["levels_expand"]) == (1, 1, 1)
+    want = quant.wire.pack_nsd(x, noise, 2.0, backend="plain")
+    for name in ("levels", "bitmap", "deltas", "nnz"):
+        assert torch.equal(getattr(p, name), getattr(want, name)), name
+    assert int(p.wire_bytes()) == int(want.wire_bytes())
+    assert torch.equal(out, quant.wire.unpack_nsd(want, backend="plain"))
+    assert out.shape == x.shape
+    # the comm int8 mode: the same k in a dense (int8, Delta) pair
+    q = quant.nsd_int8(x, noise, 2.0)
+    k_plain = quant.wire.quantize_chunks(x, noise, p.deltas[0],
+                                         backend="plain")
+    assert torch.equal(q.k, k_plain.reshape(-1)[:x.numel()].reshape(x.shape))
+    assert build.LAUNCHES["nsd_quant"] == 2
+
+
 def test_dense_nsd_residual_launches_each_kernel(cuda):
     """One dithered layer with an nsd residual: the cotangent's NSD (which
     writes the bitmap and tile mask itself) and two products, the residual's
