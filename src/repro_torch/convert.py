@@ -1,9 +1,16 @@
 """Parameter conversion between the JAX reference and the port.
 
-The reference keeps conv weights HWIO (NHWC convolutions); the port keeps
-them OIHW. Every other parameter (biases, BatchNorm scale and shift, dense
-weights (in, out)) has the same layout in both. Names are kept as they are
-(``c{i}_w``, ``bn{i}_g``, ``fc{i}_w``, ...).
+Classifiers (:func:`params_from_jax`): the reference keeps conv weights
+HWIO (NHWC convolutions); the port keeps them OIHW. Every other parameter
+(biases, BatchNorm scale and shift, dense weights (in, out)) has the same
+layout in both. Names are kept as they are (``c{i}_w``, ``bn{i}_g``,
+``fc{i}_w``, ...).
+
+LMs (:func:`lm_params_from_jax`): the reference's ``init_lm`` tree is
+nested, ``{"embed": {"table"}, "layers": {...}, "head": {"ln_f"}}``, its
+blocks stacked along a leading (n_layers, ...) axis for the scan; the port's
+``LM`` has one block per layer, ``layers.{i}.attn.wq`` and so on. Dense
+weights keep the (in, out) layout, so no array is transposed.
 """
 from __future__ import annotations
 
@@ -35,3 +42,59 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         out[name] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)
                                          if a.ndim == 4 else a)
     return out
+
+
+def _flatten(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_jax(tree: Dict, *, device: Optional[torch.device] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The reference's ``init_lm`` tree (numpy leaves, stacked layers) ->
+    the port's ``LM`` state dict (``net.load_state_dict(...)``)."""
+    def tensor(a):
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    out = {}
+    for name, a in _flatten(tree):
+        a = np.asarray(a)
+        if name.startswith("layers."):
+            for i in range(a.shape[0]):
+                out[f"layers.{i}.{name[len('layers.'):]}"] = tensor(a[i])
+        else:
+            out[name] = tensor(a)
+    return out
+
+
+def lm_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`lm_params_from_jax`: the port's named
+    parameters -> the reference's nested tree, blocks stacked (bf16 as f32
+    arrays, which hold it exactly)."""
+    per_layer: Dict[str, Dict[int, np.ndarray]] = {}
+    tree: Dict = {}
+    for name, t in params.items():
+        a = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
+            else t.detach().cpu().numpy()
+        if name.startswith("layers."):
+            i, rest = name[len("layers."):].split(".", 1)
+            per_layer.setdefault(rest, {})[int(i)] = a
+            continue
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    for rest, by_layer in per_layer.items():
+        node = tree.setdefault("layers", {})
+        *path, leaf = rest.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return tree

@@ -99,9 +99,9 @@ def quantize_cotangent(g2d: torch.Tensor, u: Optional[torch.Tensor],
     and kernel variants), the row dither (u + 1/2, exact in f32, is the
     row's uniform in [0, 1)), or meProp's top-k."""
     if pol.variant == VARIANT_ROW:
-        out = rowdither.row_dither(g2d, u + 0.5, rowdither.ROW_ALPHA)
+        out = rowdither.row_dither(g2d, u + 0.5, pol.row_alpha)
     elif pol.variant == VARIANT_MEPROP:
-        out = meprop.meprop_sparsify(g2d, meprop.MEPROP_K_FRAC)
+        out = meprop.meprop_sparsify(g2d, pol.meprop_k_frac)
     else:
         delta = nsd.compute_delta(g2d, pol.s)
         k = nsd.nsd_indices(g2d, u, delta)

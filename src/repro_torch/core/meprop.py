@@ -13,8 +13,8 @@ import torch
 
 from repro_torch.core import nsd
 
-# the fraction of each row the ``meprop`` variant keeps (the reference
-# policy's default ``meprop_k_frac``)
+# the default of ``DitherPolicy.meprop_k_frac``, the share of each row the
+# meprop variant keeps (the reference policy's default)
 MEPROP_K_FRAC = 0.1
 
 

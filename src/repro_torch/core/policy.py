@@ -1,9 +1,10 @@
 """Dither policy and the per-step context threaded through a model.
 
-Counterpart of ``repro.core.policy`` (the plain global policy: the port has
-no knob schedules: ``s`` is a Python number, and the ``row`` and ``meprop``
-variants run at the reference's default ``row_alpha`` and
-``meprop_k_frac``, ``rowdither.ROW_ALPHA`` and ``meprop.MEPROP_K_FRAC``):
+Counterpart of ``repro.core.policy``. The knobs ``s``, ``meprop_k_frac``
+and ``row_alpha`` are host numbers: a policy program
+(``repro_torch.core.schedule``) evaluates its schedules at the step on the
+host and :meth:`DitherCtx.resolve` hands each layer a ``DitherPolicy`` with
+its own variant and knobs. The variants:
 
 * ``off``    plain backprop (the paper's baseline column);
 * ``paper``  NSD on the pre-activation gradient, products in f32;
@@ -14,13 +15,16 @@ variants run at the reference's default ``row_alpha`` and
 * ``meprop`` the top-k comparator (``repro_torch.core.meprop``);
 * ``kernel`` NSD + tile-skipping int8 products on the CUDA kernels.
 
-Noise. ``jax.random``'s ``fold_in`` chain cannot be reproduced in torch,
-so each (seed, step, worker, layer) gets its own 63-bit stream key from a
-splitmix64 chain over ``seed``, ``step``, ``worker`` and the layer's
-``name_salt`` (a crc32 of its name, as in the reference), and the unit draw
-is Philox4x32-10 under that key (see :class:`DitherCtx`). Draws are
-independent across layers, steps and data-parallel workers (the condition of
-the paper's averaging argument) and identical on the CPU and the card.
+Noise. ``jax.random``'s threefry keys cannot be reproduced in torch, so
+keys are 63-bit integers and :func:`fold_in` (a splitmix64 mix) stands in
+for ``jax.random.fold_in``. A context is keyed as the reference's
+``DitherCtx.for_step`` keys it: its base key folded with the step, then with
+the worker; a micro-batch folds its index in (:meth:`DitherCtx.with_key`);
+layer ``name``'s stream is ``fold_in(key, name_salt(name))`` (a crc32 of
+the name, as in the reference). The unit draw is Philox4x32-10 under that
+stream key (see :class:`DitherCtx`). Draws are independent across layers,
+steps and data-parallel workers (the condition of the paper's averaging
+argument) and identical on the CPU and the card.
 
 Fed noise. Tests hand the port the reference's own draw by overriding
 ``unit_noise`` (and ``resid_noise``) in a subclass. That override is the
@@ -47,6 +51,8 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.meprop import MEPROP_K_FRAC
+from repro_torch.core.rowdither import ROW_ALPHA
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nsd_quant
 from repro_torch.quant import wire
@@ -62,9 +68,22 @@ VARIANTS = (VARIANT_OFF, VARIANT_PAPER, VARIANT_INT8, VARIANT_ROW,
             VARIANT_MEPROP, VARIANT_KERNEL)
 
 
+def validate_knob_values(s, meprop_k_frac, row_alpha, owner: str) -> None:
+    """Range checks shared by ``DitherPolicy`` and the program's rules and
+    phases (``repro_torch.core.schedule``); ``None`` means "not set"."""
+    if s is not None and not s > 0:
+        raise ValueError(f"{owner}: s must be > 0, got {s!r}")
+    if meprop_k_frac is not None and not 0 < meprop_k_frac <= 1:
+        raise ValueError(
+            f"{owner}: meprop_k_frac must be in (0, 1], got {meprop_k_frac!r}")
+    if row_alpha is not None and not row_alpha > 0:
+        raise ValueError(f"{owner}: row_alpha must be > 0, got {row_alpha!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class DitherPolicy:
-    """Per-run configuration of dithered backprop."""
+    """Per-run configuration of dithered backprop (and, from
+    :meth:`DitherCtx.resolve`, one layer's resolved policy)."""
 
     variant: str = VARIANT_PAPER
     s: float = 2.0  # Delta = s * std(grad): the paper's one knob
@@ -73,13 +92,15 @@ class DitherPolicy:
     # the layer's residual mode (a codec spec of repro_torch.quant), stamped
     # by DitherCtx.resolve from its MemoryPolicy
     residual: str = MODE_FP32
+    meprop_k_frac: float = MEPROP_K_FRAC  # the share of a row meProp keeps
+    row_alpha: float = ROW_ALPHA  # row-dither aggressiveness
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r}; one of "
                              f"{VARIANTS}")
-        if not self.s > 0:
-            raise ValueError(f"DitherPolicy: s must be > 0, got {self.s!r}")
+        validate_knob_values(self.s, self.meprop_k_frac, self.row_alpha,
+                             owner="DitherPolicy")
         validate_mode(self.residual)
 
     @property
@@ -115,14 +136,6 @@ def fold_in(key: int, value: int) -> int:
     return _splitmix64(_splitmix64(key & _MASK64) ^ (value & _MASK64)) >> 1
 
 
-def layer_seed(seed: int, step: int, worker: int, name: str) -> int:
-    """The 63-bit stream key of one (seed, step, worker, layer)."""
-    h = _splitmix64(seed & _MASK64)
-    for v in (step, worker, name_salt(name)):
-        h = _splitmix64(h ^ (v & _MASK64))
-    return h >> 1
-
-
 @dataclasses.dataclass
 class DitherCtx:
     """Per-step dither state: the policy plus what seeds the noise.
@@ -136,34 +149,58 @@ class DitherCtx:
     draws inside. :meth:`unit_noise` and :meth:`resid_noise` return the
     same numbers as a tensor, element for element what the launch draws
     from that key.
+
+    Keys. ``seed`` is the base key; unless ``key`` is given, the context's
+    key is ``fold_in(fold_in(seed, step), worker)`` (the reference's
+    ``for_step``), and a layer's stream is ``fold_in(key, name_salt(name))``
+    (its ``key_for``).
+
+    ``policy`` is the phase's base policy; with ``program`` set (a
+    ``repro_torch.core.schedule.PolicyProgram``) :meth:`resolve` applies
+    its rules and knob schedules at ``step`` per layer name.
     """
 
     policy: DitherPolicy
-    seed: int = 0
+    seed: int = 0  # the base key
     step: int = 0
     worker: int = 0
     device: Optional[torch.device] = None
     # repro_torch.memory.MemoryPolicy selecting each layer's residual mode;
     # None = dense fp32 residuals
     memory: Any = None
+    # the step's key; None = fold_in(fold_in(seed, step), worker)
+    key: Optional[int] = None
+    # repro_torch.core.schedule.PolicyProgram; None = the plain policy
+    program: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.key is None:
+            self.key = fold_in(fold_in(self.seed, self.step), self.worker)
+
+    def with_key(self, key: int) -> "DitherCtx":
+        """The same resolution state under another stream (a micro-batch:
+        ``fold_in(ctx.key, i)``)."""
+        return dataclasses.replace(self, key=key)
 
     def resolve(self, name: str) -> Optional[DitherPolicy]:
-        """The policy for layer ``name`` with its residual mode, or None for
-        plain backprop."""
-        if not self.policy.applies_to(name):
-            return None
-        if self.memory is not None:
+        """The policy for layer ``name`` (the program's rules and schedules
+        applied) with its residual mode, or None for plain backprop."""
+        if self.program is not None:
+            pol = self.program.resolve_layer(self, name)
+        elif self.policy.applies_to(name):
+            pol = self.policy
+        else:
+            pol = None
+        if pol is not None and self.memory is not None:
             mode = self.memory.mode_for(name)
-            if mode != self.policy.residual:
-                return self.policy.replace(residual=mode)
-        return self.policy
+            if mode != pol.residual:
+                pol = pol.replace(residual=mode)
+        return pol
 
     def cotangent_key(self, name: str) -> int:
         """Layer ``name``'s stream key for its cotangent's dither."""
-        return layer_seed(self.seed, self.step, self.worker, name)
+        return fold_in(self.key, name_salt(name))
 
     def resid_key(self, name: str) -> int:
         """Layer ``name``'s stream key for its residual encode: the

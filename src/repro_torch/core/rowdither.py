@@ -25,8 +25,8 @@ import torch
 from repro_torch.core import nsd
 
 _TINY = torch.finfo(torch.float32).tiny
-# the ``row`` variant's aggressiveness (the reference policy's default
-# ``row_alpha``)
+# the default of ``DitherPolicy.row_alpha``, the row variant's
+# aggressiveness (the reference policy's default)
 ROW_ALPHA = 1.0
 
 

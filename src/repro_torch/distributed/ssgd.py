@@ -143,7 +143,7 @@ class SSGDStep:
             params = dict(self.model.named_parameters())
             for name, p in params.items():
                 p.grad = grads[name]
-            lr = apply_updates(params, opt_state, self.opt_cfg)
+            lr = apply_updates(params, opt_state, self.opt_cfg)["lr"]
         metrics.update(loss=losses.mean(), lr=lr)
         return metrics, comm_state
 

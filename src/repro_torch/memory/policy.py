@@ -8,20 +8,18 @@ the mode onto the layer's resolved policy (``DitherPolicy.residual``). A
 layer whose dither resolution is None (policy off or excluded) runs plain
 autograd with its own dense residuals.
 
-CLI surface (``--memory-program`` on ``repro_torch.train.classifier``)::
+CLI surface (``--memory-program`` on ``repro_torch.train.classifier``, the
+``memory:`` section of the LM launcher's ``--program``)::
 
     default=nsd;rule fc0:int8;rule c*:remat;rule fc2:fp32
 """
 from __future__ import annotations
 
 import dataclasses
-import fnmatch
-import re
 from typing import Optional, Tuple, Union
 
+from repro_torch.core.schedule import pattern_matches
 from repro_torch.quant.codecs import MODE_FP32, validate_mode
-
-_GLOB_CHARS = re.compile(r"[*?\[]")
 
 # a literal, not a __doc__ slice: -OO strips docstrings
 _SPEC_DOC = """\
@@ -32,14 +30,6 @@ clauses separated by ';':
 MODE: any registered quant codec spec (repro_torch.quant.codec_names()),
       fp32 | bf16 | int8 | nsd | nsd@S | remat
 """
-
-
-def pattern_matches(pattern: str, name: str) -> bool:
-    """Glob when the pattern contains glob metacharacters, else substring
-    (the reference's ``repro.core.schedule.pattern_matches``)."""
-    if _GLOB_CHARS.search(pattern):
-        return fnmatch.fnmatchcase(name, pattern)
-    return pattern in name
 
 
 @dataclasses.dataclass(frozen=True)

@@ -65,10 +65,11 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
         metrics.reset()
     net = CNN(model, seed=seed, device=dev)
     params = dict(net.named_parameters())
-    opt_cfg = OptConfig(lr=lr, momentum=0.9, weight_decay=5e-4,
+    opt_cfg = OptConfig(name="sgd", lr=lr, momentum=0.9, weight_decay=5e-4,
+                        grad_clip=None, schedule="step",
                         step_decay_every=max(steps // 2, 1),
                         step_decay_rate=0.1)
-    state = init_opt_state(params)
+    state = init_opt_state(params, opt_cfg)
     dcfg = ClassifConfig(n_classes=model.n_classes, img_size=model.img_size,
                          channels=model.in_channels, noise=noise, seed=seed)
 

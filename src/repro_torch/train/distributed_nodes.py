@@ -74,7 +74,8 @@ def run(node_counts=(1, 2, 4), steps: int = 30, seed: int = 0, *,
     for n in node_counts:
         metrics.reset()
         net = CNN(pm.mlp_mnist(hidden=(256, 256)), seed=seed, device=dev)
-        opt_cfg = OptConfig(lr=0.05, momentum=0.9, weight_decay=5e-4)
+        opt_cfg = OptConfig(name="sgd", lr=0.05, momentum=0.9,
+                            weight_decay=5e-4, grad_clip=None)
         dcfg = SSGDConfig(n_nodes=n, s_schedule="sqrt", s_base=2.0)
         pol = DitherPolicy(variant="paper", collect_stats=True)
         # the comm-side NSD rides the same sqrt(N) schedule as the dither
@@ -82,7 +83,7 @@ def run(node_counts=(1, 2, 4), steps: int = 30, seed: int = 0, *,
                                  collect_stats=True)
         step_fn, used = make_ssgd_step(net, opt_cfg, dcfg, pol,
                                        comm_policy=comm_policy, device=dev)
-        state = init_opt_state(dict(net.named_parameters()))
+        state = init_opt_state(dict(net.named_parameters()), opt_cfg)
         data_cfg = ClassifConfig(n_classes=10, img_size=28, channels=1,
                                  noise=0.5, seed=seed)
         _sync(dev)

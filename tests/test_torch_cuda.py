@@ -559,3 +559,43 @@ def test_int8_variant_dense_products(cuda, tkn):
                                           trans_a=True)[:N, :K].t()
     assert torch.equal(x.grad, dx)
     assert torch.equal(w.grad, dw)
+
+
+def test_gemma_mlp_down_bf16_kernel_dense_matches_plain(cuda, monkeypatch):
+    """gemma-2b's mlp.down at batch 8 x seq 128 in bf16, the kernel variant
+    as the LM launcher runs it: x (1024, 16384), w (16384, 2048), cotangent
+    (1024, 2048). One NSD launch and two int8 products; k, bitmap, nnz and
+    mask and both int32 products (their f32 outputs, int32 x scale) bit for
+    bit the plain versions'; dx and dW in bf16 equal to the op's on the
+    plain versions."""
+    from repro_torch.core.int8 import absmax_int8
+    from repro_torch.kernels import ops
+
+    T, K, N = 1024, 16384, 2048
+    x = _rand((T, K), cuda, 31).to(torch.bfloat16).requires_grad_()
+    w = (_rand((K, N), cuda, 32) / K ** 0.5).to(torch.bfloat16).requires_grad_()
+    g = (_rand((T, N), cuda, 33) * 1e-3).to(torch.bfloat16)
+    ctx = DitherCtx(DitherPolicy(variant="kernel", s=2.0), seed=5, step=2)
+    before = dict(build.LAUNCHES)
+    dithered.dense(x, w, ctx=ctx, name="L.mlp.down").backward(g)
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]}
+    assert launched == {"nsd_quant": 1, "bsp_matmul_int8": 2}
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+
+    key = ctx.cotangent_key("L.mlp.down")
+    q = ops.quantize_and_mask(g, key, 2.0)
+    want = nsd_quant.nsd_quantize_plain(g.float(), q.delta, key=key)
+    for a, b in zip((q.k, q.bitmap, q.nnz, q.mask), want):
+        assert torch.equal(a, b)
+    xq, wq = absmax_int8(x.detach()), absmax_int8(w.detach())
+    for args, kw in (((q.k, wq.q, q.delta * wq.scale, q.mask), {"trans_b": True}),
+                     ((q.k, xq.q, q.delta * xq.scale, q.mask), {"trans_a": True})):
+        assert torch.equal(bsp_matmul.bsp_matmul_int8(*args, **kw),
+                           bsp_matmul.bsp_matmul_int8_plain(*args, **kw))
+
+    dx, dw = x.grad, w.grad
+    x.grad = w.grad = None
+    monkeypatch.setattr(nsd_quant, "nsd_quantize", nsd_quant.nsd_quantize_plain)
+    monkeypatch.setattr(bsp_matmul, "bsp_matmul_int8", bsp_matmul.bsp_matmul_int8_plain)
+    dithered.dense(x, w, ctx=ctx, name="L.mlp.down").backward(g)
+    assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)

@@ -50,6 +50,9 @@ from repro_torch.optim.optimizers import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train import distributed_nodes  # noqa: E402
 
 HIDDEN, B, SEED, LR = (32, 32), 16, 0, 0.05
+# the paper's recipe, as the reference's distributed bench runs it
+SGD = OptConfig(name="sgd", lr=LR, momentum=0.9, weight_decay=5e-4,
+                grad_clip=None)
 BASELINE = "benchmarks/baselines/BENCH_distributed_nodes.json"
 
 
@@ -122,8 +125,10 @@ def _step_pair(n, topology=None, grad_accum=1, steps=1):
                                      weight_decay=5e-4, grad_clip=None))
     net = CNN(pm.mlp_mnist(hidden=HIDDEN), device="cpu")
     net.load_state_dict(params_from_jax(_ref_params()))
+    opt_cfg = OptConfig(name="sgd", lr=LR, momentum=0.9, weight_decay=5e-4,
+                        grad_clip=None)
     step, pol = make_ssgd_step(
-        net, OptConfig(lr=LR, momentum=0.9, weight_decay=5e-4),
+        net, opt_cfg,
         SSGDConfig(**dcfg), DitherPolicy(variant="paper"),
         comm_policy=(CommPolicy(default="nsd", s=s_comm, topology=topology)
                      if topology else None),
@@ -137,7 +142,7 @@ def _step_pair(n, topology=None, grad_accum=1, steps=1):
     step.node_ctx = node_ctx
     if step.reducer is not None:
         step.reducer.pack_noise = _fed_pack_noise(jkey)
-    state = init_opt_state(dict(net.named_parameters()))
+    state = init_opt_state(dict(net.named_parameters()), opt_cfg)
     for i in range(steps):
         jb = j_shard_batch(j_batch(JData(**data), i, batch=B), n)
         params, jstate, jm, _ = jstep(params, jstate, jb, jkey)
@@ -202,24 +207,24 @@ def test_shard_batch_matches_reference():
 
 def test_one_node_ring_runs_as_ps():
     net = CNN(pm.mlp_mnist(hidden=HIDDEN), device="cpu")
-    step, _ = make_ssgd_step(net, OptConfig(), SSGDConfig(n_nodes=1),
+    step, _ = make_ssgd_step(net, SGD, SSGDConfig(n_nodes=1),
                              DitherPolicy(variant="paper"),
                              comm_policy=CommPolicy(topology="ring"),
                              device="cpu")
     assert isinstance(step.reducer, _StackedPSReducer)
     assert step.reducer.policy.topology == "ps"
     b = shard_batch(classification_batch(ClassifConfig(), 0, 4, device="cpu"), 1)
-    m, _ = step(init_opt_state(dict(net.named_parameters())), b, 0)
+    m, _ = step(init_opt_state(dict(net.named_parameters()), SGD), b, 0)
     assert "comm_error_bound" not in m and "comm_wire_bytes" in m
 
 
 def test_topk_ef_state_threads_through_steps():
     net = CNN(pm.mlp_mnist(hidden=HIDDEN), device="cpu")
-    step, _ = make_ssgd_step(net, OptConfig(), SSGDConfig(n_nodes=2),
+    step, _ = make_ssgd_step(net, SGD, SSGDConfig(n_nodes=2),
                              DitherPolicy(variant="paper"),
                              comm_policy=CommPolicy(default="topk_ef"),
                              device="cpu")
-    state = init_opt_state(dict(net.named_parameters()))
+    state = init_opt_state(dict(net.named_parameters()), SGD)
     cs = init_comm_state(dict(net.named_parameters()), step.reducer.policy)
     assert set(cs) == {"fc0_w", "fc1_w", "fc2_w"}
     for i in range(2):

@@ -19,7 +19,7 @@ from repro.models.cnn import batchnorm as j_batchnorm  # noqa: E402
 from repro.optim import OptConfig as JOpt, apply_updates as j_apply, init_opt_state as j_init  # noqa: E402
 from repro_torch.configs.paper_models import vgg11_cifar  # noqa: E402
 from repro_torch.core import nsd  # noqa: E402
-from repro_torch.core.policy import DitherCtx, DitherPolicy, layer_seed, name_salt  # noqa: E402
+from repro_torch.core.policy import DitherCtx, DitherPolicy, name_salt  # noqa: E402
 from repro_torch.data.synthetic import ClassifConfig, classification_batch  # noqa: E402
 from repro_torch.kernels import nsd_quant  # noqa: E402
 from repro_torch.models.cnn import CNN, batchnorm  # noqa: E402
@@ -81,11 +81,15 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 def test_layer_seeds_are_distinct_and_stable():
-    seeds = {layer_seed(s, t, w, n) for s in (0, 1) for t in (0, 1, 2)
+    def key(s, t, w, n):
+        return DitherCtx(DitherPolicy(), seed=s, step=t, worker=w,
+                         device="cpu").cotangent_key(n)
+
+    seeds = {key(s, t, w, n) for s in (0, 1) for t in (0, 1, 2)
              for w in (0, 3) for n in ("c0", "c1", "fc0")}
     assert len(seeds) == 2 * 3 * 2 * 3
     assert all(0 <= s < 2**63 for s in seeds)
-    assert layer_seed(0, 5, 0, "c3") == layer_seed(0, 5, 0, "c3")
+    assert key(0, 5, 0, "c3") == key(0, 5, 0, "c3")
     for n in ("c0", "fc2", "b3_c1"):
         assert name_salt(n) == j_name_salt(n)
 
@@ -128,8 +132,9 @@ def test_sgd_matches_reference():
     jp = {n: jnp.asarray(a) for n, a in params.items()}
     js = j_init(jp, jcfg)
     tp = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
-    cfg = OptConfig(lr=0.05, step_decay_every=2)
-    ts = init_opt_state(tp)
+    cfg = OptConfig(name="sgd", lr=0.05, weight_decay=5e-4, grad_clip=None,
+                    schedule="step", step_decay_every=2)
+    ts = init_opt_state(tp, cfg)
     for g in grads:
         jp, js, _ = j_apply(jp, {n: jnp.asarray(a) for n, a in g.items()}, js, jcfg)
         for n in tp:

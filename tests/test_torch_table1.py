@@ -248,20 +248,25 @@ def _load(path: Path, name: str):
 
 
 def test_cifar_reference_rows_cover_the_smoke_seeds():
-    """The reference's VGG11 rows that chip_smoke.py holds the card's mean
-    accuracies to: one a seed, as many seeds as it expects, each at the
-    reference's recipe, with the row's columns and values in range."""
+    """The reference's AlexNet and VGG11 rows that chip_smoke.py holds the
+    card's mean accuracies to: one a model and seed, as many seeds as it
+    expects, each at the reference's recipe, with the row's columns and
+    values in range."""
     smoke = _load(ROOT / "chip_smoke.py", "chip_smoke_consts")
     data = json.loads(CIFAR_REFERENCE.read_text())
     assert data["platform"] == "cpu"
-    rows = [r for r in data["rows"] if r["model"] == "vgg11-c10"]
-    assert [r["seed"] for r in rows] == list(range(smoke.TABLE1_REFERENCE_SEEDS))
     assert Path(ROOT / smoke.TABLE1_REFERENCE) == CIFAR_REFERENCE
-    for r in rows:
-        assert (r["system"], r["steps"]) == ("reference", 50)
-        for m in ("baseline", "dithered", "int8+dith"):
-            assert 0 <= r[f"{m}_acc"] <= 100
-        assert 0 < r["dithered_sparsity"] <= 100 and r["dithered_bits"] <= 8
+    assert smoke.TABLE1_MEAN_MODELS == ("alexnet-c10", "vgg11-c10")
+    assert {r["model"] for r in data["rows"]} == set(smoke.TABLE1_MEAN_MODELS)
+    for name in smoke.TABLE1_MEAN_MODELS:
+        rows = [r for r in data["rows"] if r["model"] == name]
+        assert ([r["seed"] for r in rows]
+                == list(range(smoke.TABLE1_REFERENCE_SEEDS))), name
+        for r in rows:
+            assert (r["system"], r["steps"]) == ("reference", 50)
+            for m in ("baseline", "dithered", "int8+dith"):
+                assert 0 <= r[f"{m}_acc"] <= 100
+            assert 0 < r["dithered_sparsity"] <= 100 and r["dithered_bits"] <= 8
 
 
 def test_cifar_rows_script_merges_reference_rows(tmp_path):
