@@ -83,6 +83,12 @@ Phases (any failure exits non-zero and prints no result):
      10 points under the reference's mean over its 24 seeds on the CPU
      (``src/repro_torch/bench/baselines/table1_cifar_reference.json``, made
      by ``tests/table1_cifar_rows.py``);
+  4h. the classifier trainer repeats: AlexNet-CIFAR at seed 0, Table 1's
+     recipe (50 steps, batch 64), paper and int8 variants, trained twice
+     with cuDNN's deterministic algorithms (``train_classifier``'s default)
+     and twice with the library's default ones, in turns: the first pair
+     equal bit for bit (every parameter and the loss), each pair's ms a
+     step printed;
   5. capture every kernel input of one step (for the NSD kernel its
      cotangent calls of the fp32 step and, apart, its calls in the nsd
      step's residual encode; for compact and expand the wire calls of the
@@ -158,13 +164,32 @@ Phases (any failure exits non-zero and prints no result):
          2 steps: two micro-batches of 4 a step, their gradients summed in
          f32 and handed to AdamW's f32 masters; each step launches twice
          7a's kernel step; losses finite, peak memory;
-  8. print one JSON line naming the seven kernels (the NSD row carries its
+  8. the ``quant:`` section of the launcher and the quant bench:
+     8a. 7a's program with ``quant: mu=m8;nu=u8``, 6 steps: the launches of
+         every step equal to 7a's, losses finite and printed beside 7a's
+         (steps 0-1 equal: the first update uses the fresh f32 moments),
+         the stored bytes of mu and nu read from the state's tensors and
+         equal to ``stored_nbytes``, beside the f32 state's; the peak
+         device memory and ms a step beside 7a's, and a torch.profiler
+         breakdown of one kernel step; then one update of every
+         parameter from the run's state and the next step's gradient with
+         f32 moments and with m8 / u8: masters equal bit for bit, and each
+         decoded moment within the codec's ``error_bound`` of the f32
+         moment;
+     8b. 7a's program with ``quant: grad=int4@g32``, 4 steps (2 kernel):
+         no NSD and no int8 launch (the codec replaces the kernel route, as
+         in the reference), no fallback; a kernel step's loss, sparsity and
+         bits (4);
+     8c. ``repro_torch.train.quant_bench.bench(quick=True)`` on the card,
+         gated by ``repro_torch.bench.compare`` against the reference's
+         ``benchmarks/baselines/BENCH_quant_bench.json``;
+  9. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
      element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e, 4f, 6b, 6c and 7);
-  9. print the JSON result line last.
+     runs of phases 4e, 4f, 6b, 6c, 7 and 8);
+  10. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -233,6 +258,7 @@ TABLE1_ACC_BAND = 10.0  # points; Table 1's accuracy gate
 # gives other rows run to run on the card, so the card takes more seeds to
 # shrink its own sampling error
 TABLE1_SEEDS = tuple(range(48))
+REPEAT_STEPS = 50  # phase 4h: two trainings a setting, Table 1's recipe
 TABLE1_REFERENCE_SEEDS = 24
 TABLE1_MEAN_MODELS = ("alexnet-c10", "vgg11-c10")
 TABLE1_REFERENCE = "src/repro_torch/bench/baselines/table1_cifar_reference.json"
@@ -272,6 +298,12 @@ LM_KERNEL_STEP = {"nsd_quant": 126, "bsp_matmul_int8": 252}
 # decodes it (wire expand) once
 LM_NSD_STEP = {"nsd_quant": 126 + 2 * 126, "bsp_matmul_int8": 252,
                "levels_compact": 2 * 126, "levels_expand": 126}
+# phase 8: the quant: section on 7a's program
+LM_QUANT_MOMENTS = "quant: mu=m8;nu=u8"
+LM_QUANT_GRAD = "quant: grad=int4@g32"
+# |decoded - f32| / error_bound: 1 up to f32 rounding (the quant bench's band)
+QUANT_BOUND_SLACK = 1.05
+QUANT_BASELINE = "benchmarks/baselines/BENCH_quant_bench.json"
 INT32_EXACT_K = 133_144  # the int8 products' int32 sum is exact while K 127^2 < 2^31
 
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
@@ -599,11 +631,14 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
 
 
 def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
-    """Phase 7: gemma-2b at full width through the LM launcher
+    """Phases 7 and 8: gemma-2b at full width through the LM launcher
     (``repro_torch.launch.train.main``): the kernel program (7a), the first
     kernel step's gradients against the plain versions' (7b), the nsd
-    residual store (7c), gradient accumulation (7d). Returns the launches
-    of the three runs by kernel, for the kernels line."""
+    residual store (7c), gradient accumulation (7d); the ``quant:`` section
+    with m8 / u8 moments (8a) and int4 on the cotangent (8b), and the quant
+    bench (8c). Returns the launches of each run by kernel, for the
+    kernels line."""
+    import dataclasses
     import gc
 
     from repro_torch.data.synthetic import TokenStreamConfig, token_batch
@@ -662,16 +697,17 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
               and trainer.model.cfg.remat, f"{label}: not bf16 with remat")
         for step, ms, loss, launched in steps_seen:
             check(math.isfinite(loss), f"{label} step {step}: loss {loss}")
-            log(f"phase 7 {label} step {step}: {ms:.3f} ms on the host clock, "
+            log(f"phase {label[0]} {label} step {step}: {ms:.3f} ms on the host clock, "
                 f"loss {loss:.4f}, launches {launched}")
-        check(not ks or max(ks) <= INT32_EXACT_K,
-              f"{label}: an int8 product of K {max(ks)} > {INT32_EXACT_K}")
-        log(f"phase 7 {label}: {n_params} parameters (bf16, remat), "
+        check(max(ks, default=0) <= INT32_EXACT_K,
+              f"{label}: an int8 product of K {max(ks, default=0)} > "
+              f"{INT32_EXACT_K}")
+        log(f"phase {label[0]} {label}: {n_params} parameters (bf16, remat), "
             f"{seconds:.1f} s for {len(steps_seen)} steps with the model's "
             f"build; int8 products' K {sorted(set(ks))} (exact up to "
             f"{INT32_EXACT_K}); peak device memory {peak / 2**30:.2f} GiB above "
             f"the {held / 2**30:.2f} GiB held before ({card})")
-        return trainer, total
+        return trainer, total, peak
 
     def step_grads(trainer, batch, step):
         """Step ``step``'s loss, gradients and dither and memory telemetry,
@@ -699,8 +735,9 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     # -- 7a: the kernel program through the launcher ----------------------
     argv = LM_ARGS + ["--steps", str(LM_STEPS), "--program", LM_PROGRAM]
     log(f"phase 7a: python -m repro_torch.launch.train {' '.join(argv)}")
-    trainer, kernel_total = run(argv, "7a")
+    trainer, kernel_total, peak_7a = run(argv, "7a")
     check(len(steps_seen) == LM_STEPS, f"7a: {len(steps_seen)} steps")
+    seen_7a = list(steps_seen)
     for step, _, _, launched in steps_seen:
         want = LM_KERNEL_STEP if step >= LM_FIRST_KERNEL_STEP else {}
         check(launched == want, f"7a step {step}: launches {launched}, want {want}")
@@ -751,7 +788,7 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     argv = LM_ARGS + ["--steps", str(LM_NSD_STEPS), "--program",
                       LM_NSD_PROGRAM]
     log(f"phase 7c: python -m repro_torch.launch.train {' '.join(argv)}")
-    trainer, nsd_total = run(argv, "7c")
+    trainer, nsd_total, _ = run(argv, "7c")
     for step, _, _, launched in steps_seen:
         check(launched == LM_NSD_STEP,
               f"7c step {step}: launches {launched}, want {LM_NSD_STEP}")
@@ -774,7 +811,7 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     argv = LM_ARGS + ["--steps", str(LM_ACCUM_STEPS), "--grad-accum",
                       str(LM_ACCUM), "--program", LM_ACCUM_PROGRAM]
     log(f"phase 7d: python -m repro_torch.launch.train {' '.join(argv)}")
-    trainer, accum_total = run(argv, "7d")
+    trainer, accum_total, _ = run(argv, "7d")
     check(len(steps_seen) == LM_ACCUM_STEPS, f"7d: {len(steps_seen)} steps")
     want = {k: LM_ACCUM * v for k, v in LM_KERNEL_STEP.items()}
     for step, _, _, launched in steps_seen:
@@ -784,10 +821,153 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s ({card})")
-    return {f"gemma-2b kernel {LM_STEPS} steps ({LM_FIRST_KERNEL_STEP} off)": kernel_total,
-            f"gemma-2b nsd {LM_NSD_STEPS} steps": nsd_total,
-            f"gemma-2b kernel {LM_ACCUM_STEPS} steps, grad-accum {LM_ACCUM}":
-                accum_total}
+    paths = {f"gemma-2b kernel {LM_STEPS} steps ({LM_FIRST_KERNEL_STEP} off)": kernel_total,
+             f"gemma-2b nsd {LM_NSD_STEPS} steps": nsd_total,
+             f"gemma-2b kernel {LM_ACCUM_STEPS} steps, grad-accum {LM_ACCUM}":
+                 accum_total}
+
+    # -- phase 8: the quant: section (8-bit moments, a cotangent codec) ---
+    t_phase = time.perf_counter()
+    from repro_torch import quant
+    from repro_torch.optim import optimizers as opt
+
+    # 8a: the 7a program with m8 / u8 moments
+    argv = LM_ARGS + ["--steps", str(LM_STEPS), "--program",
+                      f"{LM_PROGRAM} {LM_QUANT_MOMENTS}"]
+    log(f"phase 8a: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, quant_total, peak_8a = run(argv, "8a")
+    check(len(steps_seen) == LM_STEPS, f"8a: {len(steps_seen)} steps")
+    check((trainer.opt_cfg.mu_codec, trainer.opt_cfg.nu_codec) == ("m8", "u8"),
+          f"8a: OptConfig {trainer.opt_cfg}")
+    for (step, ms, loss, launched), (_, ms7, loss7, launched7) in zip(
+            steps_seen, seen_7a):
+        check(launched == launched7,
+              f"8a step {step}: launches {launched}, 7a's {launched7}")
+        log(f"phase 8a step {step}: loss {loss!r} (7a {loss7!r}), {ms:.3f} ms "
+            f"on the host clock (7a {ms7:.3f} ms)")
+    # the first update uses the fresh f32 moments: steps 0 and 1 are 7a's
+    check([x[2] for x in steps_seen[:2]] == [x[2] for x in seen_7a[:2]],
+          "8a: the losses of steps 0-1 differ from 7a's")
+    params = dict(trainer.net.named_parameters())
+    stored, want = {}, {}
+    for k, mode in (("mu", "m8"), ("nu", "u8")):
+        stored[k] = sum(getattr(e, f).numel() * getattr(e, f).element_size()
+                        for e in trainer.opt_state[k].values()
+                        for f in ("q", "scale"))
+        want[k] = sum(quant.stored_nbytes(mode, p.shape, torch.float32)
+                      for p in params.values())
+        check(stored[k] == want[k], f"8a: {k} stores {stored[k]} B, "
+              f"stored_nbytes {want[k]}")
+    f32_state = 2 * 4 * LM_PARAMS
+    ms8 = [m for _, m, _, _ in steps_seen]
+    ms7 = [m for _, m, _, _ in seen_7a]
+    log(f"phase 8a: mu {stored['mu']} B + nu {stored['nu']} B stored "
+        f"({(stored['mu'] + stored['nu']) / f32_state:.4f} of the f32 state's "
+        f"{f32_state} B); peak device memory {peak_8a / 2**30:.2f} GiB (7a "
+        f"{peak_7a / 2**30:.2f} GiB); kernel steps "
+        f"{min(ms8[3:]):.3f}-{max(ms8[3:]):.3f} ms (7a "
+        f"{min(ms7[3:]):.3f}-{max(ms7[3:]):.3f} ms), off step 1 {ms8[1]:.3f} ms "
+        f"(7a {ms7[1]:.3f} ms); launches over the run {quant_total} ({card})")
+
+    # one update from the run's state and the next step's gradient, with f32
+    # moments (the decoded state) and with m8 / u8: equal masters, and each
+    # decoded moment within the codec's bound of the f32 moment
+    batch = token_batch(tcfg, LM_STEPS, device=dev)
+    for p in params.values():
+        p.grad = None
+    trainer.grads(batch, LM_STEPS)
+    st = trainer.opt_state
+    cfg8 = dataclasses.replace(trainer.opt_cfg, grad_clip=None)
+    cfg32 = dataclasses.replace(cfg8, mu_codec=None, nu_codec=None)
+    worst = {"mu": 0.0, "nu": 0.0}
+    masters_equal = True
+    for name, p in params.items():
+        one = {}
+        for cfg in (cfg32, cfg8):
+            dec = cfg.mu_codec is None
+            w = st["master"][name].clone()
+            sub = {"step": st["step"], "master": {name: w},
+                   "mu": {name: quant.decode("m8", st["mu"][name]) if dec
+                          else dataclasses.replace(st["mu"][name])},
+                   "nu": {name: quant.decode("u8", st["nu"][name]) if dec
+                          else dataclasses.replace(st["nu"][name])}}
+            if not dec:  # the row slices write into the container's tensors
+                for k in ("mu", "nu"):
+                    e = sub[k][name]
+                    sub[k][name] = dataclasses.replace(e, q=e.q.clone(),
+                                                       scale=e.scale.clone())
+            opt.apply_updates({name: p.detach().clone()}, sub, cfg,
+                              grads={name: p.grad})
+            one[dec] = sub
+        masters_equal &= torch.equal(one[True]["master"][name],
+                                     one[False]["master"][name])
+        for k, mode in (("mu", "m8"), ("nu", "u8")):
+            enc = one[False][k][name]
+            err = (quant.decode(mode, enc) - one[True][k][name]).abs()
+            bound = quant.error_bound(mode, enc)
+            worst[k] = max(worst[k], float((err / (bound + 1e-30)).max()))
+        del one
+    for p in params.values():
+        p.grad = None
+    check(masters_equal, "8a: the f32 masters of the two updates differ")
+    batch = token_batch(tcfg, LM_FIRST_KERNEL_STEP, device=dev)
+    profile_step(torch, lambda: trainer.train_step(batch, LM_FIRST_KERNEL_STEP),
+                 card, "gemma-2b kernel step, m8 / u8 moments", steps=1,
+                 phase="8a", what="one gemma-2b training step, variant=kernel, "
+                 "AdamW with m8 / u8 moments (batch 8 x seq 128, bf16, remat)")
+    check(max(worst.values()) <= QUANT_BOUND_SLACK,
+          f"8a: a decoded moment outside its bound: {worst}")
+    log(f"phase 8a: one update of all {len(params)} parameters from the run's "
+        f"state and step {LM_STEPS}'s gradient, f32 moments vs m8 / u8: masters "
+        f"equal bit for bit; worst |decoded - f32| / error_bound mu "
+        f"{worst['mu']!r}, nu {worst['nu']!r}")
+    del trainer, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8b: int4 on the cotangent in place of the NSD kernel route
+    argv = LM_ARGS + ["--steps", str(LM_FIRST_KERNEL_STEP + 2), "--program",
+                      f"{LM_PROGRAM} {LM_QUANT_GRAD}"]
+    log(f"phase 8b: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, grad_total, _ = run(argv, "8b")
+    for step, _, _, launched in steps_seen:
+        check(not launched, f"8b step {step}: launches {launched}")
+    with_stats(trainer)
+    batch = token_batch(tcfg, LM_FIRST_KERNEL_STEP + 2, device=dev)
+    loss_b, _, rows_b, sp_b, _ = step_grads(trainer, batch,
+                                            LM_FIRST_KERNEL_STEP + 2)
+    check(not ops.KERNEL_FALLBACKS, f"8b: fallbacks {ops.KERNEL_FALLBACKS}")
+    bits = sorted({int(b) for r in rows_b.values() for b in r[:, 1]})
+    check(bits == [4], f"8b: telemetry bits {bits}")
+    log(f"phase 8b: step {LM_FIRST_KERNEL_STEP + 2} loss {loss_b!r}, sparsity "
+        f"{sp_b:.3f}% over {len(rows_b)} layers x 18 blocks, bits {bits}; no "
+        f"NSD or int8 launch, no fallback ({card})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c: the quant bench on the card against the reference's gates
+    from repro_torch.bench import SuiteRun
+    from repro_torch.train import quant_bench
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    qb = quant_bench.bench(quick=True, device=dev)
+    bench_total = dict(build.LAUNCHES)
+    for r in qb:
+        log(f"phase 8c: {r.name} {r.value!r} {r.unit} {json.dumps(r.derived)}")
+    report = quant_bench.check(qb, SuiteRun.from_dict(json.loads(
+        (Path(__file__).resolve().parent / QUANT_BASELINE).read_text())))
+    log("phase 8c: " + report.render(verbose=True).replace("\n", "\nphase 8c: "))
+    check(report.ok, "8c: the quant bench misses the reference's gates")
+    log(f"phase 8c: quant_bench.bench(quick=True) {time.perf_counter() - t0:.1f} s; "
+        f"launches {{{', '.join(f'{k!r}: {v}' for k, v in bench_total.items() if v)}}}")
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s ({card})")
+    paths.update({
+        f"gemma-2b kernel {LM_STEPS} steps, quant: mu=m8;nu=u8": quant_total,
+        f"gemma-2b {LM_FIRST_KERNEL_STEP + 2} steps, quant: grad=int4@g32": grad_total,
+        "quant_bench quick": bench_total})
+    return paths
 
 
 def main() -> int:
@@ -1441,6 +1621,59 @@ def main() -> int:
         f"and AlexNet and VGG11 x 2 at {len(TABLE1_SEEDS) - 1} more seeds: "
         f"{time.perf_counter() - t_phase:.1f} s ({card})")
 
+    # -- phase 4h: the classifier trainer repeats on the card --------------
+    # cuDNN's default convolution backward algorithms sum in an order that
+    # changes run to run; train_classifier asks for its deterministic ones
+    # (classifier.repeatable_f32). Two trainings from one seed must then
+    # agree bit for bit; two without the request are timed beside them.
+    t_phase = time.perf_counter()
+    from repro_torch.train import classifier
+
+    real_cnn, real_settings = classifier.CNN, classifier.repeatable_f32
+    nets = []
+
+    def recording_cnn(*a, **kw):
+        nets.append(real_cnn(*a, **kw))
+        return nets[-1]
+
+    def library_default():
+        real_settings()
+        torch.backends.cudnn.deterministic = False
+
+    alexnet = table1._model("alexnet-c10")
+    for variant in ("paper", "int8"):
+        runs = {"deterministic": [], "default": []}
+        for mode in ("deterministic", "default", "default", "deterministic"):
+            nets.clear()
+            classifier.CNN = recording_cnn
+            if mode == "default":
+                classifier.repeatable_f32 = library_default
+            try:
+                res = train_classifier(alexnet, DitherPolicy(variant=variant, s=2.0),
+                                       steps=REPEAT_STEPS, seed=0)
+            finally:
+                classifier.CNN, classifier.repeatable_f32 = real_cnn, real_settings
+            runs[mode].append((res, {n: p.detach().clone()
+                                     for n, p in nets[0].named_parameters()}))
+        same_bits = {}
+        for mode, ((r1, p1), (r2, p2)) in runs.items():
+            same_bits[mode] = (all(torch.equal(p1[n], p2[n]) for n in p1)
+                               and r1["final_loss"] == r2["final_loss"])
+        check(same_bits["deterministic"],
+              f"4h: two {variant} trainings from seed 0 differ")
+        ms = {m: [r["ms_per_step"] for r, _ in v] for m, v in runs.items()}
+        log(f"phase 4h: alexnet-c10 {variant}, seed 0, {REPEAT_STEPS} steps at "
+            f"batch 64: deterministic cuDNN twice acc "
+            f"{[r['acc'] for r, _ in runs['deterministic']]}, final loss "
+            f"{[r['final_loss'] for r, _ in runs['deterministic']]}, every "
+            f"parameter equal bit for bit; the library's default twice acc "
+            f"{[r['acc'] for r, _ in runs['default']]}, final loss "
+            f"{[r['final_loss'] for r, _ in runs['default']]}, parameters "
+            f"{'equal' if same_bits['default'] else 'differ'}; ms a step "
+            f"deterministic {ms['deterministic']} vs default {ms['default']} "
+            f"(in turns: deterministic, default, default, deterministic) ({card})")
+    log(f"phase 4h: {time.perf_counter() - t_phase:.1f} s ({card})")
+
     # -- phase 5 ----------------------------------------------------------
     old = ("nsd_quant", "bsp_matmul_int8")
     resid = ("levels_compact", "levels_expand")
@@ -1872,14 +2105,14 @@ def main() -> int:
             {p: n[row["name"]] for p, n in ssgd_launches.items()})
     log(f"phase 6: {time.perf_counter() - t_phase:.1f} s ({card})")
 
-    # -- phase 7: gemma-2b at full width through the LM launcher -----------
+    # -- phases 7 and 8: gemma-2b at full width through the LM launcher ----
     lm_launches = phase7(torch, card, dev, plain_kernels, swapped, kernel,
                          worst_rel)
     for row in rows:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in lm_launches.items()})
 
-    # -- phases 8 and 9 ----------------------------------------------------
+    # -- phases 9 and 10 ---------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,14 @@ row (``ctx.unit_noise(name, (T, 1))``). For a convolution the T rows run
 in the reference's NHWC order (b, h, w), so a fed reference draw lines up
 element for element.
 
+A cotangent codec (``DitherPolicy.grad_codec``, the quant program's
+``grad=``) replaces the variant's built-in quantizer, as in the reference:
+the cotangent takes the registered codec's fake-quant round trip
+(``quant.quantize``; a codec that takes noise gets the layer's
+``ctx.cotangent_dither``), and both products run as the paper variant's, in
+the op's dtype. The kernel and int8 routes are skipped: that is the
+reference's design, not a fallback, so no fallback is noted.
+
 Convolutions take the reference's padding: ``"SAME"`` (for stride 2 the
 extra row and column go to the bottom and right), ``"VALID"``, an int or
 explicit ((top, bottom), (left, right)). Uneven padding is applied with
@@ -74,17 +82,23 @@ _DENSE_MODES = (quant.MODE_FP32, quant.MODE_REMAT)
 _KERNEL_DENSE = (VARIANT_KERNEL, VARIANT_INT8)
 
 
-def _emit_zero_share(out: torch.Tensor, pol: DitherPolicy, name: str) -> None:
-    """A 32-bit variant's telemetry row: the zero share of its output."""
+def _emit_zero_share(out: torch.Tensor, bits: float, name: str) -> None:
+    """The telemetry row of a quantizer without NSD indices: the zero share
+    of its output and its ``bits``."""
     zero = 1.0 - nsd.mask_mean(out != 0)
     metrics.emit(name, nsd.QuantStats(
-        zero, torch.full_like(zero, 32.0), torch.zeros_like(zero)))
+        zero, torch.full_like(zero, float(bits)), torch.zeros_like(zero)))
 
 
-def _unit_draw(dctx: DitherCtx, pol: DitherPolicy, name: str, shape):
-    """The unit draw the generic path's quantizer consumes for a (T, N)
-    cotangent: u (T, N) for NSD, one number a row (T, 1) for row dither,
-    none for meProp."""
+def _cotangent_noise(dctx: DitherCtx, pol: DitherPolicy, name: str, shape):
+    """The noise the generic path's quantizer consumes for a (T, N)
+    cotangent: for a cotangent codec that takes noise, the layer's stream
+    key (or fed draw, ``DitherCtx.cotangent_dither``), for one that takes
+    none, None; else by variant, the unit draw u (T, N) for NSD, one number
+    a row (T, 1) for row dither, none for meProp."""
+    if pol.grad_codec is not None:
+        return (dctx.cotangent_dither(name, shape)
+                if quant.takes_noise(pol.grad_codec) else None)
     if pol.variant == VARIANT_MEPROP:
         return None
     if pol.variant == VARIANT_ROW:
@@ -92,12 +106,18 @@ def _unit_draw(dctx: DitherCtx, pol: DitherPolicy, name: str, shape):
     return dctx.unit_noise(name, shape)
 
 
-def quantize_cotangent(g2d: torch.Tensor, u: Optional[torch.Tensor],
-                       pol: DitherPolicy, name: str) -> torch.Tensor:
-    """The generic path's quantizer of a 2-D cotangent, by variant (see
-    :func:`_unit_draw` for ``u``): NSD's fake-quant k * Delta (paper, int8
-    and kernel variants), the row dither (u + 1/2, exact in f32, is the
-    row's uniform in [0, 1)), or meProp's top-k."""
+def quantize_cotangent(g2d: torch.Tensor, u, pol: DitherPolicy, name: str
+                       ) -> torch.Tensor:
+    """The generic path's quantizer of a 2-D cotangent (see
+    :func:`_cotangent_noise` for ``u``): the cotangent codec's round trip
+    when ``pol.grad_codec`` is set, else by variant NSD's fake-quant
+    k * Delta (paper, int8 and kernel variants), the row dither (u + 1/2,
+    exact in f32, is the row's uniform in [0, 1)), or meProp's top-k."""
+    if pol.grad_codec is not None:
+        out = quant.quantize(pol.grad_codec, g2d, u).to(g2d.dtype)
+        if pol.collect_stats:
+            _emit_zero_share(out, quant.parse_spec(pol.grad_codec).bits, name)
+        return out
     if pol.variant == VARIANT_ROW:
         out = rowdither.row_dither(g2d, u + 0.5, pol.row_alpha)
     elif pol.variant == VARIANT_MEPROP:
@@ -109,7 +129,7 @@ def quantize_cotangent(g2d: torch.Tensor, u: Optional[torch.Tensor],
             metrics.emit(name, nsd.quant_stats(k, delta))
         return (k.to(torch.float32) * delta).to(g2d.dtype)
     if pol.collect_stats:
-        _emit_zero_share(out, pol, name)
+        _emit_zero_share(out, 32, name)
     return out
 
 
@@ -133,14 +153,15 @@ def _kernel_products(g2d, x2d, w, noise, pol: DitherPolicy, name: str,
 def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
                    dctx: DitherCtx, name: str, conv: bool) -> None:
     """Encode x under the layer's mode and save it with w. An encoded
-    container is saved as its tensors (``save_for_backward``), its static
-    fields (shape, dtype) as attributes."""
+    container (a dataclass, or int8_absmax's NamedTuple) is saved as its
+    tensors (``save_for_backward``), its static fields (shape, dtype) as
+    attributes."""
     mode = pol.residual
     if mode in _DENSE_MODES:
         enc = x
     else:
         xr = x.permute(0, 2, 3, 1).contiguous() if conv else x  # NHWC
-        noise = (dctx.resid_dither(name, xr.shape) if quant.needs_noise(mode)
+        noise = (dctx.resid_dither(name, xr.shape) if quant.takes_noise(mode)
                  else None)
         enc = quant.encode(mode, xr, noise)
     if pol.collect_stats:
@@ -152,7 +173,8 @@ def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
         ctx.resid = None
         ctx.save_for_backward(enc, w)
         return
-    fields = [f.name for f in dataclasses.fields(enc)]
+    fields = (list(enc._fields) if isinstance(enc, tuple)
+              else [f.name for f in dataclasses.fields(enc)])
     tensors = [n for n in fields if isinstance(getattr(enc, n), torch.Tensor)]
     ctx.resid = (type(enc), tensors,
                  {n: getattr(enc, n) for n in fields if n not in tensors})
@@ -207,13 +229,14 @@ class _DitheredDense(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         x2d = x.reshape(-1, x.shape[-1])
         g2d = g.reshape(-1, g.shape[-1])
-        if pol.variant in _KERNEL_DENSE:
+        if pol.variant in _KERNEL_DENSE and pol.grad_codec is None:
             dx2d, dw = _kernel_products(
                 g2d, x2d, w, ctx.dctx.cotangent_dither(name, g2d.shape), pol,
                 name, need_dx)
         else:
             gq = quantize_cotangent(
-                g2d, _unit_draw(ctx.dctx, pol, name, g2d.shape), pol, name)
+                g2d, _cotangent_noise(ctx.dctx, pol, name, g2d.shape), pol,
+                name)
             dx2d = gq @ w.t() if need_dx else None
             dw = x2d.t() @ gq
         dx = dx2d.reshape(x.shape) if need_dx else None
@@ -296,7 +319,8 @@ class _DitheredConv2d(torch.autograd.Function):
         B, Co, Ho, Wo = g.shape
         g2d = g.permute(0, 2, 3, 1).reshape(-1, Co)  # rows (b, h, w): NHWC
         dx = None
-        if pol.variant == VARIANT_KERNEL and groups == 1:
+        if (pol.variant == VARIANT_KERNEL and pol.grad_codec is None
+                and groups == 1):
             kh, kw = w.shape[2:]
             # im2col: features in (Ci, kh, kw) order, rows (b, h, w)
             cols = F.unfold(xp, (kh, kw), dilation, padding, stride)
@@ -311,10 +335,10 @@ class _DitheredConv2d(torch.autograd.Function):
                             xp.shape[2:], (kh, kw), dilation, padding, stride)
             dw = dw_mat.t().reshape(w.shape)
         else:
-            if pol.variant == VARIANT_KERNEL:
+            if pol.variant == VARIANT_KERNEL and pol.grad_codec is None:
                 ops.note_fallback("conv:groups", name)
-            gq = quantize_cotangent(g2d, _unit_draw(ctx.dctx, pol, name,
-                                                   g2d.shape), pol, name)
+            gq = quantize_cotangent(g2d, _cotangent_noise(ctx.dctx, pol, name,
+                                                         g2d.shape), pol, name)
             gq = gq.reshape(B, Ho, Wo, Co).permute(0, 3, 1, 2)
             if need_dx:
                 dx = torch.nn.grad.conv2d_input(xp.shape, w, gq, stride,

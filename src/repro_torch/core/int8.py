@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import div
 from repro_torch.kernels import bsp_matmul
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -30,7 +31,7 @@ class QuantTensor(NamedTuple):
 
 def absmax_scale(x: torch.Tensor) -> torch.Tensor:
     amax = x.to(torch.float32).abs().max()
-    return torch.clamp(amax, min=_TINY) / 127.0
+    return div(torch.clamp(amax, min=_TINY), 127.0)
 
 
 def _quantize_int8(x: torch.Tensor, u: Optional[torch.Tensor] = None

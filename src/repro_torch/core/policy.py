@@ -57,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import nsd_quant
 from repro_torch.quant import wire
 from repro_torch.quant.codecs import MODE_FP32, RESID_SALT, validate_mode
+from repro_torch.quant.registry import validate_spec
 
 VARIANT_OFF = "off"
 VARIANT_PAPER = "paper"
@@ -94,6 +95,9 @@ class DitherPolicy:
     residual: str = MODE_FP32
     meprop_k_frac: float = MEPROP_K_FRAC  # the share of a row meProp keeps
     row_alpha: float = ROW_ALPHA  # row-dither aggressiveness
+    # a registered quant codec spec for the cotangent (the quant program's
+    # grad=); None keeps the variant's built-in quantizer
+    grad_codec: Optional[str] = None
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -102,6 +106,8 @@ class DitherPolicy:
         validate_knob_values(self.s, self.meprop_k_frac, self.row_alpha,
                              owner="DitherPolicy")
         validate_mode(self.residual)
+        if self.grad_codec is not None:
+            validate_spec(self.grad_codec)
 
     @property
     def enabled(self) -> bool:

@@ -9,14 +9,15 @@ A section starts at a whitespace-separated token that begins with
 ``dither:``, ``memory:``, ``comm:`` or ``quant:``; everything up to the next
 such token belongs to it and goes verbatim to that subsystem's parser
 (``repro_torch.core.schedule.parse_program`` for ``dither:``,
-``repro_torch.memory.policy.parse_memory_program`` for ``memory:``). This
-module only splits; a colon inside a clause (``rule lm_head:off``) never
-opens a section. ``--policy-program`` and ``--memory-program`` stay as
-deprecated aliases of the first two sections (:func:`merge_legacy_flags`).
+``repro_torch.memory.policy.parse_memory_program`` for ``memory:``,
+``repro_torch.quant.parse_quant_program`` for ``quant:``). This module
+only splits; a colon inside a clause (``rule lm_head:off``) never opens a
+section. ``--policy-program`` and ``--memory-program`` stay as deprecated
+aliases of the first two sections (:func:`merge_legacy_flags`).
 
-The ``comm:`` and ``quant:`` sections split and round-trip as in the
-reference, but their subsystems are not ported to the launcher yet:
-resolving either raises ``NotImplementedError``.
+The ``comm:`` section, and the ``quant:`` section's ``wire=`` key, split,
+parse and round-trip as in the reference, but the trainer's comm path is
+not ported yet: resolving either raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from typing import Optional
 SECTIONS = ("dither", "memory", "comm", "quant")
 COMM_TODO = ("the trainer's gradient comm path (comm: section) is not "
              "ported yet: ROADMAP.md section 1, item 7.5")
-QUANT_TODO = ("the quant program (quant: section) is not ported yet: "
-              "ROADMAP.md section 1, item 1")
+WIRE_TODO = ("quant: wire= sets the trainer's gradient comm mode, whose path "
+             "is not ported yet: ROADMAP.md section 1, item 7.5")
 
 __all__ = ["SECTIONS", "LaunchSpec", "format_program", "merge_legacy_flags",
            "parse_program"]
@@ -63,10 +64,15 @@ class LaunchSpec:
         return None
 
     def quant_overrides(self):
-        """None: a non-empty quant section raises (not ported)."""
-        if self.quant:
-            raise NotImplementedError(QUANT_TODO)
-        return None
+        """The quant section as a validated QuantProgram (None if empty); a
+        ``wire=`` key raises (the comm path is not ported)."""
+        if not self.quant:
+            return None
+        from repro_torch.quant import parse_quant_program
+        qp = parse_quant_program(self.quant)
+        if qp.wire is not None:
+            raise NotImplementedError(WIRE_TODO)
+        return qp
 
 
 def parse_program(spec: str) -> LaunchSpec:

@@ -10,14 +10,17 @@ remat per block; gemma-2b fits one 80 GB card with AdamW). The dither
 comes from ``--dither``/``--s`` as the base policy, and the ``dither:``
 section of ``--program`` (phases, knob schedules, per-layer rules; the
 kernel variant is reached through a phase or rule ``kernel``); the
-``memory:`` section picks each dithered layer's residual codec. Runs on
-CUDA unless ``--device cpu``; logs the loss every ``max(steps // 10, 1)``
-steps to stderr.
+``memory:`` section picks each dithered layer's residual codec; the
+``quant:`` section picks registered codecs per surface: ``grad=`` the
+cotangent codec (on the base policy, so phases and rules inherit it),
+``resid=`` the residual default (``memory: default=SPEC``), ``mu=`` and
+``nu=`` AdamW's stored moments. Runs on CUDA unless ``--device cpu``; logs
+the loss every ``max(steps // 10, 1)`` steps to stderr.
 
 Not ported yet (ROADMAP.md section 1): the flags ``--ckpt-dir``,
 ``--ckpt-every`` (checkpoints, item 5), ``--run-dir``,
 ``--escalate-monitors`` (obs, item 4) and ``--distributed`` (item 7), and
-the ``comm:`` and ``quant:`` program sections, which raise.
+the ``comm:`` section and ``quant: wire=`` (item 7.5), which raise.
 """
 from __future__ import annotations
 
@@ -58,11 +61,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                          "meprop"], default="paper")
     ap.add_argument("--s", type=float, default=2.0)
     ap.add_argument("--program", default="",
-                    help="run program with 'dither:' and 'memory:' sections, "
-                    "e.g. \"dither: phase@0=off;phase@30=kernel;"
-                    "rule lm_head:off memory: default=nsd\" (see "
-                    "repro_torch.launch.program). The dither section builds "
-                    "on --dither/--s as the base policy.")
+                    help="run program with 'dither:', 'memory:' and 'quant:' "
+                    "sections, e.g. \"dither: phase@0=off;phase@30=kernel;"
+                    "rule lm_head:off memory: default=nsd quant: mu=m8;"
+                    "nu=u8\" (see repro_torch.launch.program). The dither "
+                    "section builds on --dither/--s as the base policy; the "
+                    "quant section picks registered codecs per surface "
+                    "(grad/resid/mu/nu, see repro_torch.quant.program).")
     ap.add_argument("--policy-program", default="",
                     help="DEPRECATED: use --program \"dither: ...\"")
     ap.add_argument("--memory-program", default="",
@@ -82,23 +87,37 @@ def build(args: argparse.Namespace):
     spec = merge_legacy_flags(args.program, args.policy_program,
                               args.memory_program)
     spec.comm_policy()  # not ported: a comm: section raises
-    spec.quant_overrides()  # not ported: a quant: section raises
+    qo = spec.quant_overrides()  # wire= raises: not ported
     policy = (None if args.dither == "off"
               else DitherPolicy(variant=args.dither, s=args.s))
+    if qo is not None and qo.grad is not None:
+        # on the BASE policy, so the program's phases and rules inherit the
+        # cotangent codec (they build on the base with replace)
+        policy = ((policy or DitherPolicy(variant="off", s=args.s))
+                  .replace(grad_codec=qo.grad))
     if spec.dither:
         # --dither off stays off as the base: only the program's phases and
         # rule variants turn dithering on
         base = (policy if policy is not None
                 else DitherPolicy(variant="off", s=args.s))
         policy = spec.dither_program(base)
+    memory_program = spec.memory
+    if qo is not None and qo.resid is not None:
+        if memory_program:
+            raise ValueError(
+                "quant: resid= conflicts with the 'memory:' section "
+                "(its default= clause); specify one")
+        memory_program = f"default={qo.resid}"
     trainer = Trainer(
         model,
         OptConfig(name="adamw", lr=args.lr, schedule="cosine",
                   warmup_steps=max(args.steps // 20, 1),
-                  total_steps=args.steps),
+                  total_steps=args.steps,
+                  mu_codec=qo.mu if qo is not None else None,
+                  nu_codec=qo.nu if qo is not None else None),
         TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                       log_every=max(args.steps // 10, 1)),
-        policy=policy, memory_policy=spec.memory_policy(), device=device)
+        policy=policy, memory_policy=memory_program or None, device=device)
     fn = batch_fn_for(model, args.batch, args.seq, device)
 
     def batches() -> Iterator:

@@ -14,10 +14,17 @@ reference's, in f32; the port updates parameters, masters and moments in
 place (the reference returns new arrays), which keeps a 2.5 B-parameter
 model's AdamW state at one copy.
 
-Not ported yet: the reference's moment codecs (``OptConfig.mu_codec`` /
-``nu_codec``, ROADMAP.md section 1, item 1). They are set only by the
-``quant:`` section of ``--program``, which ``repro_torch.launch.program``
-refuses.
+Moments can live encoded through the quant engine: ``mu_codec`` /
+``nu_codec`` name a deterministic registered codec spec
+(``repro_torch.quant``: ``"m8"``, per-row absmax int8 momentum; ``"u8"``,
+sqrt-domain uint8 second moment; or e.g. ``"int4@g32"``). The update
+decodes a moment, runs the same f32 arithmetic on the fresh f32 moments,
+and re-encodes it: only storage changes. It works one parameter at a time,
+and a parameter whose moments scale per row (or stay f32) in slices of
+rows of at most ``CHUNK_ELEMS`` elements, so the decoded f32 temporaries
+stay one slice's worth; per-row scales make the slices' codes those of the
+whole. Dithered codecs (``needs_noise``) are refused: moments re-encode
+every step with no noise stream.
 """
 from __future__ import annotations
 
@@ -28,7 +35,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import quant
+from repro_torch.device import div
+
 _F32 = np.float32
+# the most elements of one slice of rows on the encoded-moment path: 64 Mi,
+# 256 MiB per f32 temporary (gemma-2b's tied embedding takes 8 slices)
+CHUNK_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +60,21 @@ class OptConfig:
     step_decay_every: int = 100  # paper: lr-decay 0.1/100
     step_decay_rate: float = 0.1
     min_lr_ratio: float = 0.1
+    # deterministic quant codec specs for stored moments (None = dense f32)
+    mu_codec: Optional[str] = None
+    nu_codec: Optional[str] = None  # adamw only
 
     def __post_init__(self):
         if self.name not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {self.name!r}")
         if self.schedule not in ("constant", "cosine", "step"):
             raise ValueError(f"unknown lr schedule {self.schedule!r}")
+        for field, mode in (("mu_codec", self.mu_codec),
+                            ("nu_codec", self.nu_codec)):
+            if mode is not None and quant.needs_noise(mode):
+                raise ValueError(
+                    f"{field}={mode!r}: moment codecs must be deterministic "
+                    f"(re-encoded every step without an RNG stream)")
 
 
 def schedule_lr(cfg: OptConfig, step: int) -> float:
@@ -93,20 +115,90 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
     return grads, gn
 
 
+def _encode(mode: Optional[str], x: torch.Tensor):
+    return x if mode is None else quant.encode(mode, x)
+
+
 def init_opt_state(params: Dict[str, torch.Tensor], cfg: OptConfig) -> Dict:
     """``step``, f32 ``master`` copies of the bf16/f16 parameters, and the
-    moments: ``mu`` (both), ``nu`` (adamw), f32 zeros."""
-    def zeros():
-        return {n: torch.zeros_like(p, dtype=torch.float32)
+    moments: ``mu`` (both), ``nu`` (adamw), f32 zeros, encoded under
+    ``mu_codec`` / ``nu_codec`` when set."""
+    def zeros(mode):
+        return {n: _encode(mode, torch.zeros_like(p, dtype=torch.float32))
                 for n, p in params.items()}
 
     state = {"step": 0,
              "master": {n: p.detach().to(torch.float32).clone()
                         for n, p in params.items() if _needs_master(p)},
-             "mu": zeros()}
+             "mu": zeros(cfg.mu_codec)}
     if cfg.name == "adamw":
-        state["nu"] = zeros()
+        state["nu"] = zeros(cfg.nu_codec)
     return state
+
+
+def _update(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+            nu: Optional[torch.Tensor], cfg: OptConfig, lr: float,
+            bc1: float, bc2: float) -> None:
+    """One parameter's (or slice's) update in place: f32 master ``w``,
+    gradient ``g``, moments ``mu`` and (adamw) ``nu``."""
+    if cfg.name == "sgd":
+        mu.mul_(cfg.momentum).add_(g).add_(w, alpha=cfg.weight_decay)
+        w.sub_(lr * mu)
+        return
+    b1, b2 = cfg.b1, cfg.b2
+    mu.mul_(b1).add_((1 - b1) * g)
+    nu.mul_(b2).add_((1 - b2) * torch.square(g))
+    upd = div(mu, bc1) / (torch.sqrt(div(nu, bc2)) + cfg.eps)
+    if cfg.weight_decay:
+        upd.add_(cfg.weight_decay * w)
+    w.sub_(lr * upd)
+
+
+def _row_slices(cfg: OptConfig, shape) -> Tuple[int, list]:
+    """(cols, [(r0, r1), ...]) of a parameter on the encoded-moment path:
+    slices of rows of at most CHUNK_ELEMS elements when every moment codec
+    scales per row (or is f32), else one slice of all rows."""
+    cols = int(shape[-1]) if len(shape) else 1
+    rows = math.prod(int(d) for d in shape) // max(cols, 1)
+    modes = (cfg.mu_codec, cfg.nu_codec if cfg.name == "adamw" else None)
+    by_row = all(m is None or quant.parse_spec(m).granularity == "row"
+                 for m in modes)
+    step = max(CHUNK_ELEMS // max(cols, 1), 1) if by_row else rows
+    return cols, [(r, min(r + step, rows))
+                  for r in range(0, max(rows, 1), max(step, 1))]
+
+
+def _decode_rows(mode: Optional[str], enc, r0: int, r1: int, whole: bool,
+                 cols: int) -> torch.Tensor:
+    """Rows r0:r1 of a moment as f32 (rows, cols): a view of an f32
+    moment, or a decode (of the whole encoding, or of its row slice)."""
+    if mode is None:
+        return enc.reshape(-1, cols)[r0:r1]
+    if not whole:
+        enc = dataclasses.replace(
+            enc, shape=(r1 - r0, cols),
+            **{f.name: getattr(enc, f.name)[r0:r1]
+               for f in dataclasses.fields(enc)
+               if isinstance(getattr(enc, f.name), torch.Tensor)})
+    return quant.decode(mode, enc).reshape(-1, cols)
+
+
+def _store_rows(mode: Optional[str], moments: Dict, name: str,
+                x: torch.Tensor, r0: int, r1: int, whole: bool,
+                shape) -> None:
+    """Re-encode the updated f32 rows ``x`` into ``moments[name]``: the
+    whole encoding replaced, or the row slice of each of its tensors
+    overwritten (an f32 moment was updated in place)."""
+    if mode is None:
+        return
+    if whole:
+        moments[name] = quant.encode(mode, x.reshape(shape))
+        return
+    enc, new = moments[name], quant.encode(mode, x)
+    for f in dataclasses.fields(enc):
+        t = getattr(enc, f.name)
+        if isinstance(t, torch.Tensor):
+            t[r0:r1].copy_(getattr(new, f.name))
 
 
 @torch.no_grad()
@@ -124,26 +216,35 @@ def apply_updates(params: Dict[str, torch.Tensor], state: Dict,
         grads = {n: p.grad for n, p in params.items()}
     if cfg.grad_clip is not None:
         grads, metrics["grad_norm"] = clip_by_global_norm(grads, cfg.grad_clip)
-    if cfg.name == "adamw":
-        b1, b2 = cfg.b1, cfg.b2
+    adamw = cfg.name == "adamw"
+    bc1 = bc2 = None
+    if adamw:
         t = _F32(step + 1)
-        bc1 = float(_F32(1) - _F32(b1) ** t)
-        bc2 = float(_F32(1) - _F32(b2) ** t)
+        bc1 = float(_F32(1) - _F32(cfg.b1) ** t)
+        bc2 = float(_F32(1) - _F32(cfg.b2) ** t)
+    nu_codec = cfg.nu_codec if adamw else None
+    encoded = cfg.mu_codec is not None or nu_codec is not None
     for name, p in params.items():
         w = state["master"].get(name, p)
-        g = grads[name].to(torch.float32)
-        mu = state["mu"][name]
-        if cfg.name == "sgd":
-            mu.mul_(cfg.momentum).add_(g).add_(w, alpha=cfg.weight_decay)
-            w.sub_(lr * mu)
+        if not encoded:
+            _update(w, grads[name].to(torch.float32), state["mu"][name],
+                    state["nu"][name] if adamw else None, cfg, lr, bc1, bc2)
         else:
-            mu.mul_(b1).add_((1 - b1) * g)
-            nu = state["nu"][name]
-            nu.mul_(b2).add_((1 - b2) * torch.square(g))
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            if cfg.weight_decay:
-                upd.add_(cfg.weight_decay * w)
-            w.sub_(lr * upd)
+            cols, slices = _row_slices(cfg, p.shape)
+            whole = len(slices) == 1
+            w2, g2 = w.view(-1, cols), grads[name].reshape(-1, cols)
+            for r0, r1 in slices:
+                mu = _decode_rows(cfg.mu_codec, state["mu"][name], r0, r1,
+                                  whole, cols)
+                nu = (_decode_rows(nu_codec, state["nu"][name], r0, r1,
+                                   whole, cols) if adamw else None)
+                _update(w2[r0:r1], g2[r0:r1].to(torch.float32), mu, nu, cfg,
+                        lr, bc1, bc2)
+                _store_rows(cfg.mu_codec, state["mu"], name, mu, r0, r1,
+                            whole, p.shape)
+                if adamw:
+                    _store_rows(nu_codec, state["nu"], name, nu, r0, r1,
+                                whole, p.shape)
         if w is not p:
             p.copy_(w)
     state["step"] = step + 1

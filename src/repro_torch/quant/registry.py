@@ -9,14 +9,22 @@ capability of one quantization format:
     stored_nbytes(spec, shape, dtype)   static device capacity of the encoding
     capacity_bytes(spec, enc)           static bytes of a concrete encoding
     measured_bytes(spec, enc)           occupancy-aware bytes (wire figure)
+    error_bound(spec, enc)              per-element |decode - x| upper bound,
+                                        or None when the round trip is exact
+    compute_on_packed(...)              optional: consume the packed form
+                                        directly (nsd: both backward products)
 
 Where the reference passes an RNG key, the port passes ``noise``: a
 Philox stream key (an int, ``DitherCtx.resid_key``; the nsd codec's kernel
 route draws u ~ U(-1/2, 1/2) inside its NSD launch, its plain route draws
 the same numbers in torch), or a unit draw tensor over the tensor's shape,
 the seam through which tests feed the reference's own draw
-(``DitherCtx.resid_noise``). Codecs with ``needs_noise = False`` ignore
-it.
+(``DitherCtx.resid_noise``). ``needs_noise`` (the reference's
+``needs_key``) says encode cannot run without it; codecs with
+``needs_noise = False`` are deterministic and usable for optimizer
+moments, which re-encode every step with no stream. ``takes_noise`` says
+encode uses it when given: ``int8_absmax`` rounds stochastically then, as
+the reference does when handed a key.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ class Codec:
 
     name: str = ""
     needs_noise: bool = True
+    takes_noise: bool = True
 
     def make_spec(self, param: str) -> QuantSpec:
         raise NotImplementedError
@@ -75,6 +84,14 @@ class Codec:
 
     def measured_bytes(self, spec: QuantSpec, enc):
         return self.capacity_bytes(spec, enc)
+
+    def error_bound(self, spec: QuantSpec, enc) -> Optional[torch.Tensor]:
+        """Per-element upper bound on |decode(enc) - x|; None = exact."""
+        return None
+
+    def compute_on_packed(self, spec: QuantSpec, enc, *operands):
+        raise NotImplementedError(
+            f"codec {self.name!r} has no compute_on_packed capability")
 
 
 _REGISTRY: Dict[str, Codec] = {}
@@ -103,8 +120,13 @@ def codec_names() -> Tuple[str, ...]:
 
 @functools.lru_cache(maxsize=None)
 def parse_spec(mode: str) -> QuantSpec:
-    """Resolve a spec string (``"nsd@0.5"``) to a QuantSpec: the codec
-    before ``@`` must be registered, and its ``make_spec`` owns the
-    parameter grammar."""
+    """Resolve a spec string (``"nsd@0.5"``, ``"int4@g32"``) to a
+    QuantSpec: the codec before ``@`` must be registered, and its
+    ``make_spec`` owns the parameter grammar."""
     kind, _, param = mode.partition("@")
     return get_codec(kind).make_spec(param)
+
+
+def validate_spec(mode: str) -> str:
+    parse_spec(mode)
+    return mode

@@ -18,6 +18,7 @@ of that name does in the reference.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
@@ -42,10 +43,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def repeatable_f32() -> None:
+    """Full f32 and repeatable convolutions on the card: cuDNN would run
+    f32 convolutions in TF32, and the backward algorithms it picks by
+    default sum in an order that changes from run to run, so two trainings
+    from one seed would end apart (``chip_smoke.py`` phase 4h)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
                      steps: int = 60, batch: int = 64, lr: float = 0.05,
                      seed: int = 0, noise: float = 0.5,
                      memory: Union[None, str, MemoryPolicy] = None,
+                     opt_overrides: Optional[Dict] = None,
                      device: Optional[torch.device] = None
                      ) -> Dict[str, float]:
     """Train ``model`` (a config from ``repro_torch.configs``) under
@@ -54,12 +67,13 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
     max_bits over every dithered layer and step. ``memory`` (a
     ``MemoryPolicy`` or its spec string) selects each dithered layer's
     residual codec or remat; with stats on, the result then also carries
-    ``residual_compression``, dense over measured residual bytes."""
+    ``residual_compression``, dense over measured residual bytes.
+    ``opt_overrides`` replaces fields of the recipe's OptConfig (e.g.
+    ``{"name": "adamw", "lr": 3e-3, "mu_codec": "m8", "nu_codec": "u8"}``).
+    """
     dev = resolve_device(device)
     memory = as_memory_policy(memory)
-    # full f32 on the card: cuDNN would run f32 convolutions in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    repeatable_f32()
     collect = policy is not None and policy.collect_stats
     if collect:
         metrics.reset()
@@ -69,6 +83,8 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
                         grad_clip=None, schedule="step",
                         step_decay_every=max(steps // 2, 1),
                         step_decay_rate=0.1)
+    if opt_overrides:
+        opt_cfg = dataclasses.replace(opt_cfg, **opt_overrides)
     state = init_opt_state(params, opt_cfg)
     dcfg = ClassifConfig(n_classes=model.n_classes, img_size=model.img_size,
                          channels=model.in_channels, noise=noise, seed=seed)

@@ -599,3 +599,81 @@ def test_gemma_mlp_down_bf16_kernel_dense_matches_plain(cuda, monkeypatch):
     monkeypatch.setattr(bsp_matmul, "bsp_matmul_int8", bsp_matmul.bsp_matmul_int8_plain)
     dithered.dense(x, w, ctx=ctx, name="L.mlp.down").backward(g)
     assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
+
+
+# ---------------------------------------------------------------------------
+# the quant engine's codecs and encoded optimizer moments on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["int8_absmax", "int4@g32", "int4@g64", "m8",
+                                  "u8"])
+@pytest.mark.parametrize("shape", [(512, 2048), (37,), ()], ids=str)
+def test_codecs_on_the_card_match_the_cpu(cuda, mode, shape):
+    """Encode, decode and the bound on CUDA tensors: the same f32 operations
+    as on the CPU, so the same bits (int8_absmax with the stream key's draw,
+    the draw kernel's on the card and the plain draw on the CPU). u8 takes
+    a square root, which CUDA's ``torch.sqrt`` does not round correctly (an
+    ulp off the CPU's on ~0.6% of random inputs): its codes may differ by
+    one on at most 1% of the elements, its scales by an ulp."""
+    x = _rand(shape, cuda, 5) * 3.0
+    if mode == "u8":
+        x = torch.square(x)
+    noise = 987654321 if mode == "int8_absmax" else None
+    enc_c, enc_g = quant.encode(mode, x.cpu(), noise), quant.encode(mode, x, noise)
+    if mode == "u8":
+        dq = (enc_g.q.cpu().int() - enc_c.q.int()).abs()
+        assert int(dq.max()) <= 1 and int(dq.sum()) <= max(1, dq.numel() // 100)
+        torch.testing.assert_close(enc_g.scale.cpu(), enc_c.scale,
+                                   rtol=2.0 ** -22, atol=0)
+        return
+    for name in ("q", "scale", "packed"):
+        if hasattr(enc_g, name):
+            assert torch.equal(getattr(enc_g, name).cpu(), getattr(enc_c, name)), name
+    assert torch.equal(quant.decode(mode, enc_g).cpu(), quant.decode(mode, enc_c))
+    assert torch.equal(quant.error_bound(mode, enc_g).cpu(),
+                       quant.error_bound(mode, enc_c))
+
+
+@pytest.mark.parametrize("chunk", [None, 4096])
+def test_adamw_m8u8_step_on_the_card_matches_the_cpu(cuda, chunk, monkeypatch):
+    """Two AdamW steps with m8 / u8 moments (a bf16 parameter with its f32
+    master, an f32 one, a bias), from the same state and gradients on the
+    card and on the CPU. ``chunk`` cuts each parameter into slices of rows.
+    No clip: the global norm is a sum, whose order differs between the
+    devices. The momentum takes no square root: its codes and scales are
+    equal. CUDA's ``torch.sqrt`` is not correctly rounded (an ulp off the
+    CPU's on ~0.6% of random inputs), and both the update and u8's encode
+    take one: u8's codes may differ by one on at most 1% of the elements
+    and its scales by an ulp; masters agree to rtol 1e-6, bf16 parameters
+    to one bf16 ulp."""
+    from repro_torch.optim import optimizers as opt
+
+    if chunk is not None:
+        monkeypatch.setattr(opt, "CHUNK_ELEMS", chunk)
+    cfg = opt.OptConfig(name="adamw", lr=1e-2, weight_decay=0.1, grad_clip=None,
+                        mu_codec="m8", nu_codec="u8")
+    shapes = {"emb": ((300, 64), torch.bfloat16), "w": ((64, 96), torch.float32),
+              "b": ((96,), torch.float32)}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = {n: torch.nn.Parameter(_rand(s, cuda, i).to(dev, dt))
+                  for i, (n, (s, dt)) in enumerate(shapes.items())}
+        state = opt.init_opt_state(params, cfg)
+        for step in range(2):
+            for i, (n, p) in enumerate(params.items()):
+                p.grad = _rand(p.shape, cuda, 10 + 3 * step + i).to(dev, p.dtype)
+            opt.apply_updates(params, state, cfg)
+        out[dev.type] = (params, state)
+    (pg, sg), (pc, sc) = out["cuda"], out["cpu"]
+    for n in pg:
+        torch.testing.assert_close(
+            pg[n].detach().cpu().float(), pc[n].detach().float(), atol=0,
+            rtol=2.0 ** -7 if pg[n].dtype == torch.bfloat16 else 1e-6)
+        assert torch.equal(sg["mu"][n].q.cpu(), sc["mu"][n].q), n
+        assert torch.equal(sg["mu"][n].scale.cpu(), sc["mu"][n].scale), n
+        dq = (sg["nu"][n].q.cpu().int() - sc["nu"][n].q.int()).abs()
+        assert int(dq.max()) <= 1 and int(dq.sum()) <= max(1, dq.numel() // 100), n
+        torch.testing.assert_close(sg["nu"][n].scale.cpu(), sc["nu"][n].scale,
+                                   rtol=2.0 ** -22, atol=0)
+    torch.testing.assert_close(sg["master"]["emb"].cpu(), sc["master"]["emb"],
+                               rtol=1e-6, atol=0)

@@ -129,11 +129,29 @@ def test_parse_errors_match_reference(spec):
 
 @pytest.mark.parametrize("mode", ["int4@g32", "m8", "u8", "int8_absmax"])
 def test_codecs_not_ported_yet_are_refused(mode):
-    j_parse(f"default={mode}")  # the reference has them
-    with pytest.raises(ValueError, match="unknown residual mode"):
-        parse_memory_program(f"default={mode}")
-    with pytest.raises(ValueError):
-        DitherPolicy(residual=mode)
+    """The four codecs the residual store lacked until the quant engine's
+    last slice: a memory program and a policy now take them as the
+    reference does, and a dense layer's dW from such a residual (paper
+    variant, the reference's cotangent and residual draws fed: int8_absmax
+    rounds stochastically with the residual's draw) matches the reference's
+    in the paper-variant band of test_nsd_residual_dw_matches_reference."""
+    mem = f"default={mode}"
+    assert parse_memory_program(mem).default == j_parse(mem).default == mode
+    assert DitherPolicy(residual=mode).residual == mode
+    jctx = JCtx.for_step(jax.random.PRNGKey(0), 3, JPolicy(variant="paper", s=2.0),
+                         memory=j_parse(mem))
+    x, w = np.maximum(_np((16, 48), 8), 0), _np((48, 8), 9, 0.1)
+    dw_j = jax.grad(lambda w: jnp.sum(jdense(jnp.asarray(x), w, ctx=jctx,
+                                             name="fc") ** 2))(jnp.asarray(w))
+    wt = torch.from_numpy(w).requires_grad_()
+    ctx = FedCtx(DitherPolicy(variant="paper", s=2.0), jctx,
+                 parse_memory_program(mem))
+    (dithered.dense(torch.from_numpy(x), wt, ctx=ctx, name="fc") ** 2
+     ).sum().backward()
+    assert ctx.resid_name == ("fc" if mode == "int8_absmax" else None)
+    want = np.asarray(dw_j)
+    np.testing.assert_allclose(wt.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 def test_as_memory_policy_passes_policies_and_refuses_other_types():

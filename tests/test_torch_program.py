@@ -2,8 +2,9 @@
 (``repro_torch.launch.program``) against ``repro.launch.program``: section
 splitting, the round trip, the deprecated per-DSL flags and their
 conflicts, and the resolution of the sections the port has. The ``comm:``
-and ``quant:`` sections split as in the reference but raise when resolved
-(not ported)."""
+section, and the ``quant:`` section's ``wire=`` key, split as in the
+reference but raise when resolved (the trainer's comm path is not
+ported)."""
 import dataclasses
 import warnings
 
@@ -92,7 +93,7 @@ def test_sections_resolve_through_their_parsers():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("comm: topology=ring", "item 7.5"), ("quant: mu=m8", "item 1")])
+    ("comm: topology=ring", "item 7.5"), ("quant: wire=nsd", "item 7.5")])
 def test_unported_sections_raise(spec, item):
     s = program.parse_program(spec)
     with pytest.raises(NotImplementedError, match=item):

@@ -62,21 +62,15 @@ CPU_ARGS = ["--arch", ARCH, "--preset", "smoke", "--batch", "4", "--seq", "16",
 # the optimizer
 # ---------------------------------------------------------------------------
 
-def _ported_fields(jcfg):
-    """The reference OptConfig's fields without its moment codecs, which
-    the port leaves out (only the refused ``quant:`` section sets them)."""
-    d = dataclasses.asdict(jcfg)
-    assert d.pop("mu_codec") is None and d.pop("nu_codec") is None
-    return d
-
-
 def test_opt_config_defaults_match_reference():
     got, want = opt.OptConfig(), JOpt()
-    assert dataclasses.asdict(got) == _ported_fields(want)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.b2, got.grad_clip, got.min_lr_ratio) == (0.95, 1.0, 0.1)
-    for spec in ("quant: mu=m8", "quant: nu=u8"):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            launch_train.main(CPU_ARGS + ["--steps", "1", "--program", spec])
+    assert (got.mu_codec, got.nu_codec) == (None, None)
+    for spec, field in (("quant: mu=m8", "mu_codec"), ("quant: nu=u8", "nu_codec")):
+        args = launch_train.parse_args(CPU_ARGS + ["--steps", "1", "--program", spec])
+        trainer = launch_train.build(args)[0]
+        assert getattr(trainer.opt_cfg, field) == spec.split("=")[1]
     with pytest.raises(ValueError):
         opt.OptConfig(name="lion")
 
@@ -170,7 +164,7 @@ def test_launcher_builds_the_reference_recipe():
         trainer, batches = launch_train.build(args)
         want = JOpt(name="adamw", lr=3e-3, schedule="cosine",
                     warmup_steps=max(steps // 20, 1), total_steps=steps)
-        assert dataclasses.asdict(trainer.opt_cfg) == _ported_fields(want)
+        assert dataclasses.asdict(trainer.opt_cfg) == dataclasses.asdict(want)
         assert trainer.tcfg.log_every == max(steps // 10, 1)
         assert trainer.program.base == DitherPolicy(variant="paper", s=2.0)
         assert trainer.program.phase_policy_at(2).variant == "kernel"
