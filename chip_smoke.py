@@ -183,13 +183,36 @@ Phases (any failure exits non-zero and prints no result):
      8c. ``repro_torch.train.quant_bench.bench(quick=True)`` on the card,
          gated by ``repro_torch.bench.compare`` against the reference's
          ``benchmarks/baselines/BENCH_quant_bench.json``;
-  9. print one JSON line naming the seven kernels (the NSD row carries its
+  9. observability and the closed-loop sparsity controller:
+     9a. gemma-2b through the launcher with ``--run-dir RUN
+         --escalate-monitors`` and the program ``phase@0=off;phase@2=kernel;
+         rule lm_head:off;controller:target=0.9,gain=2.0``, 6 steps, then
+         ``python -m repro_torch.obs.report RUN``: the run directory holds
+         the manifest and the dither, memory, phase and train streams,
+         ``read_run`` reads it and the report renders the per-layer table;
+         spans ``data``, ``dispatch``, ``controller`` and ``monitor`` every
+         step; no critical monitor event; launches a step equal to 7a's and
+         no fallback; one log-scale per discovered layer name; the ``s``
+         each NSD call received (captured at ``ops.quantize_and_mask``) is
+         2 x exp(log-scale) of its projection at every kernel step, and
+         every tick moves each log-scale toward (target - measured); ms a
+         step beside 7a's, and one kernel step's forward and backward with
+         the telemetry on and off, in turns;
+     9b. ``repro_torch.train.layer_sparsity.bench(quick=True)`` gated
+         against ``benchmarks/baselines/BENCH_layer_sparsity.json``; then
+         LeNet-300-100 under ``phase@0=kernel;controller:target=0.93,
+         gain=4.0``, 40 steps: final-window sparsity within 5 points of
+         the target for every layer, NSD 3 and int8 product 5 launches a
+         step, no fallback;
+     9c. ``repro_torch.train.obs_bench.bench(quick=True)`` gated against
+         ``benchmarks/baselines/BENCH_obs_bench.json``;
+  10. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
      element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e, 4f, 6b, 6c, 7 and 8);
-  10. print the JSON result line last.
+     runs of phases 4e, 4f, 6b, 6c, 7, 8 and 9);
+  11. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -199,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -289,6 +313,7 @@ LM_PROGRAM = "dither: phase@0=off;phase@2=kernel;s=lin(2,6,4.0,2.0);rule lm_head
 LM_NSD_PROGRAM = "dither: phase@0=kernel;rule lm_head:off memory: default=nsd"
 LM_ACCUM_PROGRAM = "dither: phase@0=kernel;rule lm_head:off"
 LM_PARAMS = 2_506_172_416
+LM_BLOCKS = 18  # gemma-2b's blocks, all under the one scan tag "L"
 LM_FIRST_KERNEL_STEP = 2
 # a kernel step: 18 blocks x 7 dithered denses (q, k, v, o, gate, up, down;
 # lm_head off), one NSD and two int8 products each (every input needs dx)
@@ -305,6 +330,20 @@ LM_QUANT_GRAD = "quant: grad=int4@g32"
 QUANT_BOUND_SLACK = 1.05
 QUANT_BASELINE = "benchmarks/baselines/BENCH_quant_bench.json"
 INT32_EXACT_K = 133_144  # the int8 products' int32 sum is exact while K 127^2 < 2^31
+# phase 9: 7a's launcher run under the sparsity controller, with a run
+# directory; the classifier's kernel path under the controller; the benches
+CTRL_TARGET = 0.9
+LM_CTRL_PROGRAM = (f"dither: phase@0=off;phase@2=kernel;rule lm_head:off;"
+                   f"controller:target={CTRL_TARGET},gain=2.0")
+LM_PROJECTIONS = tuple(f"L.{n}" for n in ("attn.k", "attn.o", "attn.q",
+                                          "attn.v", "mlp.down", "mlp.gate",
+                                          "mlp.up"))
+PHASE_SPANS = ("controller", "data", "dispatch", "monitor")
+LENET_CTRL_PROGRAM = "phase@0=kernel;controller:target=0.93,gain=4.0"
+LENET_CTRL_STEPS, CTRL_GAP = 40, 5.0  # the reference's gate, in points
+STATS_PAIRS = 5  # 9a: a kernel step's gradients with stats on and off
+LAYER_SPARSITY_BASELINE = "benchmarks/baselines/BENCH_layer_sparsity.json"
+OBS_BASELINE = "benchmarks/baselines/BENCH_obs_bench.json"
 
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
@@ -513,7 +552,7 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
 
     # -- 6b: the SSGD step at full width, variant=kernel, timed by span
     spans = []
-    real_span = ssgd_mod.record_function
+    real_span = ssgd_mod.annotate
 
     @contextlib.contextmanager
     def timed_span(name):
@@ -573,7 +612,7 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
                 "levels_compact": packs, "levels_expand": packs}
         state = init_opt_state(dict(net.named_parameters()), opt_cfg)
         total = {k: 0 for k in build.LAUNCHES}
-        ssgd_mod.record_function = timed_span
+        ssgd_mod.annotate = timed_span
         try:
             for i in range(steps):
                 b = shard_batch(classification_batch(data, i, SSGD_NODE_BATCH * n), n)
@@ -602,7 +641,7 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
                     f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
                     f"above the {held / 2**20:.1f} MiB held before the step ({card})")
         finally:
-            ssgd_mod.record_function = real_span
+            ssgd_mod.annotate = real_span
         path_launches[label] = total
         log(f"phase 6b: {label}: node gradients at batch {SSGD_NODE_BATCH} a node "
             f"against the plain versions: worst relative L2 {worst}")
@@ -821,6 +860,7 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s ({card})")
+    ms_7a = [m for _, m, _, _ in seen_7a]
     paths = {f"gemma-2b kernel {LM_STEPS} steps ({LM_FIRST_KERNEL_STEP} off)": kernel_total,
              f"gemma-2b nsd {LM_NSD_STEPS} steps": nsd_total,
              f"gemma-2b kernel {LM_ACCUM_STEPS} steps, grad-accum {LM_ACCUM}":
@@ -967,7 +1007,241 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
         f"gemma-2b kernel {LM_STEPS} steps, quant: mu=m8;nu=u8": quant_total,
         f"gemma-2b {LM_FIRST_KERNEL_STEP + 2} steps, quant: grad=int4@g32": grad_total,
         "quant_bench quick": bench_total})
-    return paths
+    return paths, ms_7a
+
+
+def phase9(torch, card, dev, ms_7a):
+    """Phase 9: the run directory and the sparsity controller on gemma-2b
+    (9a), the layer-sparsity bench and the classifier's kernel path under
+    the controller (9b), the obs bench (9c). Returns the launches of each
+    run by kernel, for the kernels line."""
+    import gc
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.bench import SuiteRun
+    from repro_torch.configs import paper_models
+    from repro_torch.core import schedule as sched
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import train as lm_train
+    from repro_torch.obs import metrics, report, runlog
+    from repro_torch.train import classifier, layer_sparsity, obs_bench
+    from repro_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+
+    def baseline(path):
+        return SuiteRun.from_dict(json.loads((root / path).read_text()))
+
+    # -- 9a: gemma-2b under controller: with a run directory ---------------
+    steps_seen, s_seen, ticks = [], [], []
+    real_step = trainer_mod.Trainer.train_step
+    real_qm = ops.quantize_and_mask
+    real_update = sched.SparsityController.update
+
+    def timed_step(self, batch, step):
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        s_seen.append([])
+        t0 = time.perf_counter()
+        out = real_step(self, batch, step)
+        torch.cuda.synchronize()
+        steps_seen.append((step, (time.perf_counter() - t0) * 1e3,
+                           float(out["loss"]), dict(self._ctrl.state),
+                           {k: v - before[k] for k, v in build.LAUNCHES.items()
+                            if v != before[k]}))
+        return out
+
+    def recording_qm(g, noise, s):
+        s_seen[-1].append(s)
+        return real_qm(g, noise, s)
+
+    def recording_update(self, state, measured):
+        new = real_update(self, state, measured)
+        ticks.append((dict(state), dict(measured), dict(new)))
+        return new
+
+    rd = tempfile.mkdtemp(prefix="chip_smoke_run")
+    argv = LM_ARGS + ["--steps", str(LM_STEPS), "--run-dir", rd,
+                      "--escalate-monitors", "--program", LM_CTRL_PROGRAM]
+    log(f"phase 9a: python -m repro_torch.launch.train {' '.join(argv)}")
+    ops.KERNEL_FALLBACKS.clear()
+    build.reset_launches()
+    metrics.reset()
+    trainer_mod.Trainer.train_step = timed_step
+    ops.quantize_and_mask = recording_qm
+    sched.SparsityController.update = recording_update
+    t0 = time.perf_counter()
+    try:
+        trainer = lm_train.main(argv)
+    finally:
+        trainer_mod.Trainer.train_step = real_step
+        ops.quantize_and_mask = real_qm
+        sched.SparsityController.update = real_update
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ctrl_total = dict(build.LAUNCHES)
+    check(not ops.KERNEL_FALLBACKS, f"9a: fallbacks {ops.KERNEL_FALLBACKS}")
+    check(len(steps_seen) == LM_STEPS, f"9a: {len(steps_seen)} steps")
+    names = sorted(trainer._ctrl.state)
+    check(names == sorted(LM_PROJECTIONS + ("lm_head",)),
+          f"9a: controller names {names}")
+    for (step, ms, loss, _, launched), ms7 in zip(steps_seen, ms_7a):
+        want = LM_KERNEL_STEP if step >= LM_FIRST_KERNEL_STEP else {}
+        check(math.isfinite(loss), f"9a step {step}: loss {loss}")
+        check(launched == want, f"9a step {step}: launches {launched}, want {want}")
+        log(f"phase 9a step {step}: {ms:.3f} ms on the host clock (7a "
+            f"{ms7:.3f} ms), loss {loss:.4f}, launches {launched}")
+    # the s of every NSD call: 2 x exp(log-scale) of its projection in f32,
+    # under the state the step ran with (a step's tick runs after it)
+    for (step, _, _, st, _), calls in zip(steps_seen, s_seen):
+        want = Counter()
+        if step >= LM_FIRST_KERNEL_STEP:
+            for n in LM_PROJECTIONS:
+                want[float(np.float32(2.0)
+                           * np.float32(math.exp(float(st[n]))))] += LM_BLOCKS
+        check(Counter(calls) == want,
+              f"9a step {step}: NSD s {sorted(Counter(calls).items())}, want "
+              f"{sorted(want.items())}")
+    check(len(ticks) == LM_STEPS - LM_FIRST_KERNEL_STEP,
+          f"9a: {len(ticks)} controller updates")
+    lo, hi = (float(np.float32(math.log(b))) for b in (0.25, 4.0))
+    for old, measured, new in ticks:
+        check(sorted(measured) == sorted(LM_PROJECTIONS),
+              f"9a: measured {sorted(measured)}")
+        for n, sp in measured.items():
+            moved = float(new[n]) - float(old[n])
+            toward = (CTRL_TARGET - sp) * moved > 0 or (
+                moved == 0 and (float(new[n]) in (lo, hi)
+                                or abs(CTRL_TARGET - sp) < 1e-6))
+            check(toward, f"9a: {n} log-scale {float(old[n])} -> "
+                  f"{float(new[n])} at sparsity {sp}")
+    log("phase 9a: log-scales after each tick: " + "; ".join(
+        ", ".join(f"{n[2:]} {float(new[n]):+.4f} ({100 * m[n]:.2f}%)"
+                  for n in LM_PROJECTIONS) for _, m, new in ticks))
+    manifest, streams = runlog.read_run(rd)
+    files = sorted(f for f in os.listdir(rd))
+    for f in ("manifest.json", "dither.jsonl", "memory.jsonl", "phase.jsonl",
+              "train.jsonl"):
+        check(f in files, f"9a: {f} not in the run directory {files}")
+    # remat reruns each block's forward in the backward; its memory rows
+    # come from the first run only, one per dither row
+    check(len(streams["memory"]) == len(streams["dither"]),
+          f"9a: {len(streams['memory'])} memory rows, "
+          f"{len(streams['dither'])} dither rows")
+    spans = {}
+    for r in streams["phase"]:
+        spans.setdefault(r["tag"], []).append(int(r["step"]))
+    check(sorted(spans) == list(PHASE_SPANS)
+          and all(v == list(range(LM_STEPS)) for v in spans.values()),
+          f"9a: phase rows {spans}")
+    critical = [e for e in streams.get("monitor", [])
+                if e["severity"] == "critical"]
+    check(not critical and "fallback" not in streams,
+          f"9a: critical events {critical}, streams {sorted(streams)}")
+    text = report.render(rd)
+    check("per-layer dither telemetry" in text
+          and all(n in text for n in LM_PROJECTIONS), "9a: report table")
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", rd],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    check(cli.returncode == 0 and cli.stdout.strip() == text,
+          f"9a: python -m repro_torch.obs.report: rc {cli.returncode} "
+          f"{cli.stderr[-2000:]}")
+    ms = [m for _, m, _, _, _ in steps_seen]
+    log(f"phase 9a: {seconds:.1f} s for {LM_STEPS} steps with the model's build "
+        f"and the layer-name discovery; kernel steps {min(ms[3:]):.3f}-"
+        f"{max(ms[3:]):.3f} ms (7a {min(ms_7a[3:]):.3f}-{max(ms_7a[3:]):.3f} ms); "
+        f"run directory {files}, {sum(len(v) for v in streams.values())} rows, "
+        f"monitor events {Counter(e['kind'] for e in streams.get('monitor', []))}; "
+        f"launches over the run {ctrl_total} ({card})")
+    log("phase 9a: python -m repro_torch.obs.report RUN:\n" + text)
+    shutil.rmtree(rd, ignore_errors=True)
+    # what the telemetry costs a kernel step: its forward and backward with
+    # the run's controller state, stats on (as run) and off, in turns
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+
+    batch = token_batch(TokenStreamConfig(vocab=trainer.model.cfg.vocab,
+                                          seq_len=128, batch=8),
+                        LM_STEPS, device=dev)
+    prog = trainer.program
+    programs = {"stats on": prog, "stats off": prog.replace(
+        base=prog.base.replace(collect_stats=False), controller=None)}
+    wall = {k: [] for k in programs}
+    for _ in range(STATS_PAIRS):
+        for label, p in programs.items():
+            trainer.program = p
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.grads(batch, LM_STEPS - 1)
+            torch.cuda.synchronize()
+            wall[label].append((time.perf_counter() - t0) * 1e3)
+    trainer.program = prog
+    metrics.reset()
+    med = {k: statistics.median(v) for k, v in wall.items()}
+    log(f"phase 9a: one kernel step's forward and backward (step "
+        f"{LM_STEPS - 1}, the run's log-scales), median of {STATS_PAIRS} in "
+        f"turns: stats on {med['stats on']:.3f} ms, off {med['stats off']:.3f} "
+        f"ms ({med['stats on'] - med['stats off']:+.3f} ms); all "
+        f"{ {k: [round(x, 3) for x in v] for k, v in wall.items()} } ({card})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9b: the layer-sparsity bench; the kernel path under the controller
+    t0 = time.perf_counter()
+    build.reset_launches()
+    ls = layer_sparsity.bench(quick=True, device=dev)
+    ls_total = dict(build.LAUNCHES)
+    for r in ls:
+        log(f"phase 9b: {r.name} {r.value!r} {r.unit} {json.dumps(r.derived)}")
+    rep = layer_sparsity.check(ls, baseline(LAYER_SPARSITY_BASELINE))
+    log("phase 9b: " + rep.render(verbose=True).replace("\n", "\nphase 9b: "))
+    check(rep.ok, "9b: the layer-sparsity bench misses the reference's gates")
+    log(f"phase 9b: layer_sparsity.bench(quick=True) {time.perf_counter() - t0:.1f} s")
+    ops.KERNEL_FALLBACKS.clear()
+    build.reset_launches()
+    prog = sched.parse_program(LENET_CTRL_PROGRAM, DitherPolicy(s=2.0))
+    res = classifier.train_classifier(paper_models.lenet300100(), prog,
+                                      steps=LENET_CTRL_STEPS, device=dev)
+    lenet_total = dict(build.LAUNCHES)
+    launched = {k: v for k, v in lenet_total.items() if v}
+    want = {k: LENET_CTRL_STEPS * v for k, v in NEW_MODELS["lenet300100"].items()}
+    check(launched == want, f"9b: LeNet-300-100 launches {launched}, want {want}")
+    check(not ops.KERNEL_FALLBACKS, f"9b: fallbacks {ops.KERNEL_FALLBACKS}")
+    gaps = {t: abs(float(np.array_split(metrics.rows(t)[:, 0], 3)[-1].mean())
+                   * 100 - 93.0) for t in metrics.tags()}
+    check(sorted(gaps) == ["fc0", "fc1", "fc2"]
+          and max(gaps.values()) <= CTRL_GAP, f"9b: final-window gaps {gaps}")
+    log(f"phase 9b: LeNet-300-100 under {LENET_CTRL_PROGRAM!r}, "
+        f"{LENET_CTRL_STEPS} steps: final-window |sparsity - 93%| "
+        + ", ".join(f"{t} {g:.3f}" for t, g in sorted(gaps.items()))
+        + f" points (gate {CTRL_GAP}); acc {res['acc']}, {res['ms_per_step']:.3f} "
+        f"ms a step; launches {launched}, no fallback ({card})")
+
+    # -- 9c: the obs bench -------------------------------------------------
+    t0 = time.perf_counter()
+    build.reset_launches()
+    ob = obs_bench.bench(quick=True, device=dev)
+    ob_total = dict(build.LAUNCHES)
+    for r in ob:
+        log(f"phase 9c: {r.name} {r.value!r} {r.unit} {json.dumps(r.derived)}")
+    rep = obs_bench.check(ob, baseline(OBS_BASELINE))
+    log("phase 9c: " + rep.render(verbose=True).replace("\n", "\nphase 9c: "))
+    check(rep.ok, "9c: the obs bench misses the reference's gates")
+    log(f"phase 9c: obs_bench.bench(quick=True) {time.perf_counter() - t0:.1f} s; "
+        f"launches {{{', '.join(f'{k!r}: {v}' for k, v in ob_total.items() if v)}}}")
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {
+        f"gemma-2b kernel {LM_STEPS} steps under controller: with --run-dir": ctrl_total,
+        "layer_sparsity quick": ls_total,
+        f"lenet300100 kernel {LENET_CTRL_STEPS} steps under controller:": lenet_total,
+        "obs_bench quick": ob_total}
 
 
 def main() -> int:
@@ -2106,13 +2380,15 @@ def main() -> int:
     log(f"phase 6: {time.perf_counter() - t_phase:.1f} s ({card})")
 
     # -- phases 7 and 8: gemma-2b at full width through the LM launcher ----
-    lm_launches = phase7(torch, card, dev, plain_kernels, swapped, kernel,
-                         worst_rel)
+    lm_launches, ms_7a = phase7(torch, card, dev, plain_kernels, swapped,
+                                kernel, worst_rel)
+    # -- phase 9: the run directory and the sparsity controller -----------
+    lm_launches.update(phase9(torch, card, dev, ms_7a))
     for row in rows:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in lm_launches.items()})
 
-    # -- phases 9 and 10 ---------------------------------------------------
+    # -- phases 10 and 11 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -164,7 +164,7 @@ def _save_residual(ctx, x: torch.Tensor, w: torch.Tensor, pol: DitherPolicy,
         noise = (dctx.resid_dither(name, xr.shape) if quant.takes_noise(mode)
                  else None)
         enc = quant.encode(mode, xr, noise)
-    if pol.collect_stats:
+    if pol.collect_stats and not dctx.recompute:
         metrics.emit_memory(name,
                             quant.measured_bytes(mode, enc),
                             quant.capacity_bytes(mode, enc),
@@ -196,7 +196,8 @@ def _differentiable(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _apply_op(fn, x, w, pol: DitherPolicy, name: str) -> torch.Tensor:
+def _apply_op(fn, x, w, pol: DitherPolicy, dctx: DitherCtx, name: str
+              ) -> torch.Tensor:
     """``fn(x, w, pol)`` under the layer's residual mode. ``remat`` runs it
     under ``torch.utils.checkpoint`` with telemetry stripped (the backward
     reruns the forward), and records the op inputs it keeps alive: measured
@@ -205,7 +206,7 @@ def _apply_op(fn, x, w, pol: DitherPolicy, name: str) -> torch.Tensor:
         return fn(x, w, pol)
     y = checkpoint(fn, x, w, pol.replace(collect_stats=False),
                    use_reentrant=False, preserve_rng_state=False)
-    if pol.collect_stats:
+    if pol.collect_stats and not dctx.recompute:
         nbytes = quant.dense_nbytes(x.shape, x.dtype)
         metrics.emit_memory(name, nbytes, nbytes, nbytes)
     return y
@@ -359,7 +360,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if pol is not None and _differentiable(x, w):
         y = _apply_op(lambda xx, ww, p: _DitheredDense.apply(xx, ww, p, ctx,
                                                              name),
-                      x, w, pol, name)
+                      x, w, pol, ctx, name)
     else:
         y = torch.matmul(x, w)
     return y if b is None else y + b
@@ -380,7 +381,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         geom = (stride, pads, dilation, groups)
         y = _apply_op(lambda xx, ww, p: _DitheredConv2d.apply(xx, ww, geom, p,
                                                               ctx, name),
-                      x, w, pol, name)
+                      x, w, pol, ctx, name)
     else:
         xp, tpad = _padded_input(x, pads)
         y = F.conv2d(xp, w, None, stride, tpad, dilation, groups)

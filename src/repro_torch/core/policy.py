@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Set, Tuple, Union
 
 import torch
 
@@ -163,7 +163,8 @@ class DitherCtx:
 
     ``policy`` is the phase's base policy; with ``program`` set (a
     ``repro_torch.core.schedule.PolicyProgram``) :meth:`resolve` applies
-    its rules and knob schedules at ``step`` per layer name.
+    its rules and knob schedules at ``step`` per layer name, and ``ctrl``'s
+    log-scale on the layer's ``s``.
     """
 
     policy: DitherPolicy
@@ -178,6 +179,15 @@ class DitherCtx:
     key: Optional[int] = None
     # repro_torch.core.schedule.PolicyProgram; None = the plain policy
     program: Any = None
+    # the sparsity controller's {layer name: f32 log-scale on s}
+    # (repro_torch.core.schedule.ControllerDriver.state); None = no scaling
+    ctrl: Optional[Dict[str, Any]] = None
+    # layer-name recorder: every name resolved goes in
+    # (repro_torch.core.schedule.discover_layer_names)
+    recorder: Optional[Set[str]] = None
+    # a forward rerun by activation checkpointing (the LM's per-block
+    # remat): its first run recorded the residual telemetry, this one none
+    recompute: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -185,13 +195,16 @@ class DitherCtx:
             self.key = fold_in(fold_in(self.seed, self.step), self.worker)
 
     def with_key(self, key: int) -> "DitherCtx":
-        """The same resolution state under another stream (a micro-batch:
-        ``fold_in(ctx.key, i)``)."""
+        """The same resolution state (program, controller state, recorder)
+        under another stream (a micro-batch: ``fold_in(ctx.key, i)``)."""
         return dataclasses.replace(self, key=key)
 
     def resolve(self, name: str) -> Optional[DitherPolicy]:
-        """The policy for layer ``name`` (the program's rules and schedules
-        applied) with its residual mode, or None for plain backprop."""
+        """The policy for layer ``name`` (the program's rules, schedules and
+        controller scale applied) with its residual mode, or None for plain
+        backprop."""
+        if self.recorder is not None:
+            self.recorder.add(name)
         if self.program is not None:
             pol = self.program.resolve_layer(self, name)
         elif self.policy.applies_to(name):

@@ -10,7 +10,12 @@ the ``--policy-program`` grammar):
 * schedules (:class:`Const`, :class:`Piecewise`, :class:`Linear`): a knob
   as a function of the step.
 * :class:`PhaseSpec`: the variant (and knob defaults) from a step on.
-* :class:`PolicyProgram`: the three over a base ``DitherPolicy``;
+* :class:`SparsityController`: a closed-loop integral controller that
+  nudges each layer's ``s`` toward a target sparsity from the per-layer
+  dither telemetry (``repro_torch.obs.metrics``); :class:`ControllerDriver`
+  runs it (layer names found once by :func:`discover_layer_names`, a tick
+  after each step through a :class:`TelemetryWindow`).
+* :class:`PolicyProgram`: these over a base ``DitherPolicy``;
   :meth:`PolicyProgram.phase_policy_at` gives a step's base policy and
   :meth:`PolicyProgram.resolve_layer` one layer's policy at a step.
 
@@ -19,31 +24,31 @@ step, in f32 arithmetic as the reference evaluates it on the traced step,
 and the layer's ``DitherPolicy`` carries the value. (The reference traces
 its knobs so that a ramp never recompiles; PyTorch runs eagerly, so there is
 nothing to recompile. A captured CUDA graph of the step would need them in
-device memory, with the Philox key.)
-
-Not ported yet: the closed-loop ``SparsityController`` with its
-``ControllerDriver``, ``TelemetryWindow`` and ``discover_layer_names``
-(the ``controller:`` clause raises ``NotImplementedError``).
+device memory, with the Philox key.) The controller's state, one f32
+log-scale a layer name, is host numbers too, updated between steps in the
+reference's f32 arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import math
 import re
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
-from repro_torch.core.policy import (VARIANT_OFF, VARIANTS, DitherPolicy,
+from repro_torch.core.policy import (VARIANT_OFF, VARIANT_PAPER, VARIANTS,
+                                     DitherCtx, DitherPolicy,
                                      validate_knob_values)
 
 __all__ = ["Const", "Piecewise", "Linear", "eval_schedule",
-           "pattern_matches", "LayerRule", "PhaseSpec", "PolicyProgram",
-           "as_program", "parse_program"]
+           "pattern_matches", "LayerRule", "PhaseSpec", "SparsityController",
+           "PolicyProgram", "as_program", "parse_program",
+           "discover_layer_names", "ControllerDriver", "TelemetryWindow"]
 
 _F32 = np.float32
-CONTROLLER_TODO = ("the sparsity controller (controller: clause) is not "
-                   "ported yet: ROADMAP.md section 1, item 3")
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +212,61 @@ class PhaseSpec:
 
 
 # ---------------------------------------------------------------------------
+# the closed-loop sparsity controller (host state, host updates)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SparsityController:
+    """Integral controller on log(s) per layer: sparsity below target ->
+    raise s (a bigger Delta, more exact zeros), and vice versa.
+
+    The state is ``{layer name: f32 log-scale}``, host ``np.float32``
+    numbers. :meth:`update` runs between steps on the telemetry window's
+    measurements, and each layer's resolved ``s`` is multiplied by
+    ``exp(log_scale)`` (:meth:`PolicyProgram.resolve_layer`).
+    """
+
+    target: float  # target mean pre-activation-gradient sparsity in (0, 1)
+    gain: float = 2.0  # log-space integral gain on (target - measured)
+    min_scale: float = 0.25  # bounds on the multiplier applied to s
+    max_scale: float = 4.0
+
+    def __post_init__(self):
+        if not 0.0 < self.target < 1.0:
+            raise ValueError(
+                f"SparsityController: target must be in (0, 1), got {self.target!r}")
+        if not self.gain > 0:
+            raise ValueError(
+                f"SparsityController: gain must be > 0, got {self.gain!r}")
+        if not 0 < self.min_scale <= 1.0 <= self.max_scale:
+            raise ValueError(
+                "SparsityController: need 0 < min_scale <= 1 <= max_scale, "
+                f"got [{self.min_scale!r}, {self.max_scale!r}]")
+
+    def init_state(self, names: Sequence[str]) -> Dict[str, np.float32]:
+        return {n: _F32(0.0) for n in sorted(names)}
+
+    def update(self, state: Dict[str, np.float32],
+               measured: Dict[str, float]) -> Dict[str, np.float32]:
+        """One controller tick. Names absent from ``state`` are ignored: the
+        state's names never change mid-run.
+
+        The reference's f32 arithmetic: it adds the Python double
+        ``gain * (target - sparsity)`` to the f32 state as a weak-typed
+        scalar, that is, rounded to f32 first, and clips to the bounds
+        ``log(min_scale)`` and ``log(max_scale)`` rounded to f32."""
+        lo = _F32(math.log(self.min_scale))
+        hi = _F32(math.log(self.max_scale))
+        new = dict(state)
+        for name, sparsity in measured.items():
+            if name in new:
+                nudged = _F32(new[name]) + _F32(
+                    self.gain * (self.target - float(sparsity)))
+                new[name] = np.minimum(np.maximum(nudged, lo), hi)
+        return new
+
+
+# ---------------------------------------------------------------------------
 # the program
 # ---------------------------------------------------------------------------
 
@@ -217,7 +277,8 @@ class PolicyProgram:
     Layer ``name`` at step t: the variant is the base's, then the active
     phase's, then that of the last matching rule that sets one ("off"
     exempts the layer); each knob is the base's, then the phase default,
-    then the program-level schedule, then the last matching rule's.
+    then the program-level schedule, then the last matching rule's; then
+    the controller's log-scale on ``s`` (the context's ``ctrl``).
     """
 
     base: DitherPolicy = dataclasses.field(default_factory=DitherPolicy)
@@ -226,6 +287,7 @@ class PolicyProgram:
     s: Optional[ScheduleLike] = None
     meprop_k_frac: Optional[ScheduleLike] = None
     row_alpha: Optional[ScheduleLike] = None
+    controller: Optional[SparsityController] = None
 
     def __post_init__(self):
         object.__setattr__(self, "rules", tuple(self.rules))
@@ -237,6 +299,10 @@ class PolicyProgram:
                 f"got {starts}")
         _validate_knob_schedules(self.s, self.meprop_k_frac, self.row_alpha,
                                  owner="PolicyProgram")
+        if self.controller is not None and not self.base.collect_stats:
+            raise ValueError(
+                "PolicyProgram: the sparsity controller consumes per-layer "
+                "telemetry — set collect_stats=True on the base policy")
 
     def phase_policy_at(self, step: int) -> DitherPolicy:
         """The base policy of step ``step``: the phases' variant and knob
@@ -292,7 +358,13 @@ class PolicyProgram:
                     ra = rule.row_alpha
         if variant == VARIANT_OFF:
             return None
-        return base.replace(variant=variant, s=eval_schedule(s, ctx.step),
+        s_val = eval_schedule(s, ctx.step)
+        log_scale = ctx.ctrl.get(name) if ctx.ctrl else None
+        if log_scale is not None:
+            # f32 s * exp(log_scale), as the reference scales its traced s;
+            # exp correctly rounded to f32 (XLA's is within an ulp of it)
+            s_val = float(_F32(s_val) * _F32(math.exp(float(log_scale))))
+        return base.replace(variant=variant, s=s_val,
                             meprop_k_frac=eval_schedule(kf, ctx.step),
                             row_alpha=eval_schedule(ra, ctx.step))
 
@@ -308,6 +380,100 @@ def as_program(policy) -> Optional[PolicyProgram]:
         return PolicyProgram(base=policy)
     raise TypeError(
         f"expected DitherPolicy, PolicyProgram or None, got {type(policy)!r}")
+
+
+# ---------------------------------------------------------------------------
+# layer-name discovery and the controller's host protocol
+# ---------------------------------------------------------------------------
+
+def discover_layer_names(loss_fn, params, batch, *, device) -> List[str]:
+    """Every layer name that consults the policy in one loss evaluation,
+    sorted: one forward under ``torch.no_grad()`` with a recording context
+    (variant paper, no memory policy), so no backward runs and no kernel
+    launches. The reference finds the same names with ``jax.eval_shape``.
+    ``loss_fn(params, batch, ctx)`` must thread ctx like ``Model.loss``."""
+    recorder: set = set()
+    ctx = DitherCtx(DitherPolicy(variant=VARIANT_PAPER), device=device,
+                    recorder=recorder)
+    with torch.no_grad():
+        loss_fn(params, batch, ctx)
+    return sorted(recorder)
+
+
+class ControllerDriver:
+    """The host protocol of a program's sparsity controller, shared by the
+    LM trainer and the classifier trainer:
+
+    1. :meth:`ensure_init`: discover the layer names once and build the
+       ``{layer: log-scale}`` state;
+    2. hand ``state`` to each step's ``DitherCtx`` (``ctrl=``);
+    3. :meth:`tick`: after each step, fold the new telemetry into the state.
+
+    No-ops throughout when the program has no controller.
+    """
+
+    def __init__(self, program: Optional["PolicyProgram"]):
+        self.program = program
+        self.controller = program.controller if program is not None else None
+        self.state: Dict[str, np.float32] = {}
+        self.window: Optional["TelemetryWindow"] = None
+        self._inited = False
+
+    @property
+    def active(self) -> bool:
+        return self.controller is not None
+
+    @property
+    def ready(self) -> bool:
+        return self._inited
+
+    def ensure_init(self, loss_fn, params, batch, *, device) -> List[str]:
+        """Idempotent (a flag, not the state's truth: a model with no
+        dithered layer finds none and must not run the forward again).
+        Returns the discovered names."""
+        if not self.active or self._inited:
+            return sorted(self.state)
+        names = discover_layer_names(loss_fn, params, batch, device=device)
+        self.state = self.controller.init_state(names)
+        self.window = TelemetryWindow()
+        self._inited = True
+        return names
+
+    def tick(self) -> None:
+        if self.window is None:
+            return
+        measured = self.window.measure()
+        if measured:
+            self.state = self.controller.update(self.state, measured)
+
+
+class TelemetryWindow:
+    """Reader of the per-layer sparsity telemetry: each :meth:`measure`
+    returns the mean sparsity of the rows that arrived since the previous
+    call, by layer name (the port's dither tags are the layer names, where
+    the reference prefixes its ``stats_tag``).
+
+    The cursors start at the bus's row counts when the window is made: the
+    process bus outlives a run, and the first tick of a second run must not
+    fold the first run's history into the state."""
+
+    def __init__(self):
+        from repro_torch.obs import metrics
+
+        self._seen: Dict[str, int] = {tag: metrics.row_count(tag)
+                                      for tag in metrics.tags()}
+
+    def measure(self) -> Dict[str, float]:
+        from repro_torch.obs import metrics
+
+        out: Dict[str, float] = {}
+        for tag in metrics.tags():
+            n_seen = self._seen.get(tag, 0)
+            new = metrics.rows_since(tag, n_seen)
+            if len(new):
+                out[tag] = float(new[:, 0].mean())
+                self._seen[tag] = n_seen + len(new)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +495,7 @@ clauses separated by ';':
                               it contains */?/[, substring otherwise; last
                               matching rule wins per knob.
   controller:target=F[,gain=F][,min=F][,max=F]
-                              closed-loop per-layer s (not ported yet)
+                              closed-loop per-layer s toward target sparsity
 example:
   phase@0=off;phase@30=paper;s=lin(30,200,4.0,2.0);rule lm_head:off;rule L*.mlp.*:s=3.0
 """
@@ -410,14 +576,36 @@ def _parse_rule(body: str, clause: str) -> LayerRule:
     return LayerRule(pattern=pattern.strip(), **kw)
 
 
+def _parse_controller(body: str, clause: str) -> SparsityController:
+    kw: Dict[str, float] = {}
+    names = {"target": "target", "gain": "gain", "min": "min_scale",
+             "max": "max_scale"}
+    for a in _split_top(body, ","):
+        if "=" not in a:
+            raise ValueError(
+                f"policy-program clause {clause!r}: bad assignment {a!r}")
+        k, v = (t.strip() for t in a.split("=", 1))
+        if k not in names:
+            raise ValueError(
+                f"policy-program clause {clause!r}: unknown controller key "
+                f"{k!r} (one of {sorted(names)})")
+        kw[names[k]] = float(v)
+    if "target" not in kw:
+        raise ValueError(
+            f"policy-program clause {clause!r}: controller needs target=F")
+    return SparsityController(**kw)
+
+
 def parse_program(spec: str, base: Optional[DitherPolicy] = None
                   ) -> PolicyProgram:
     """Parse a policy-program spec string (grammar: ``_SPEC_DOC``, printed
-    in every parse error)."""
+    in every parse error). A ``controller:`` clause turns the base policy's
+    ``collect_stats`` on: the controller reads the telemetry."""
     base = base if base is not None else DitherPolicy()
     phases: List[PhaseSpec] = []
     rules: List[LayerRule] = []
     knobs: Dict[str, ScheduleLike] = {}
+    controller: Optional[SparsityController] = None
     for clause in _split_top(spec, ";"):
         m = re.fullmatch(r"phase@(\d+)\s*=\s*(.+)", clause)
         if m:
@@ -440,7 +628,8 @@ def parse_program(spec: str, base: Optional[DitherPolicy] = None
             rules.append(_parse_rule(clause[len("rule "):], clause))
             continue
         if clause.startswith("controller:"):
-            raise NotImplementedError(f"{clause!r}: {CONTROLLER_TODO}")
+            controller = _parse_controller(clause[len("controller:"):], clause)
+            continue
         if "=" in clause:
             k, v = (t.strip() for t in clause.split("=", 1))
             if k in _KNOB_ALIASES:
@@ -449,5 +638,7 @@ def parse_program(spec: str, base: Optional[DitherPolicy] = None
         raise ValueError(
             f"policy-program: cannot parse clause {clause!r}; grammar:\n"
             + _SPEC_DOC)
+    if controller is not None and not base.collect_stats:
+        base = base.replace(collect_stats=True)
     return PolicyProgram(base=base, rules=tuple(rules), phases=tuple(phases),
-                         **knobs)
+                         controller=controller, **knobs)

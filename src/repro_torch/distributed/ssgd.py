@@ -14,8 +14,9 @@ routes the stacked (n, ...) node gradients through ``Reducer.reduce``
 (``ps`` or ``ring``, per-leaf keys, wire telemetry, error feedback).
 
 Trace spans ``ssgd/grad``, ``ssgd/reduce`` and ``ssgd/update`` wrap the
-three phases (``torch.profiler.record_function``, the reference's
-``annotate``); ``chip_smoke.py`` times the step's phases through them.
+three phases (``repro_torch.obs.annotate``, a
+``torch.profiler.record_function`` range, as the reference's ``annotate``
+names its scopes); ``chip_smoke.py`` times the step's phases through them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm.compression import TOPO_PS, CommPolicy
 from repro_torch.comm.reducer import reducer as comm_reducer
@@ -32,6 +32,7 @@ from repro_torch.core.policy import DitherCtx, DitherPolicy, fold_in
 from repro_torch.device import resolve_device
 from repro_torch.memory.policy import as_memory_policy
 from repro_torch.models.cnn import CNN, loss_fn
+from repro_torch.obs.trace import annotate
 from repro_torch.optim.optimizers import OptConfig, apply_updates
 
 __all__ = ["SSGDConfig", "SSGDStep", "make_ssgd_step", "shard_batch"]
@@ -125,11 +126,11 @@ class SSGDStep:
     def __call__(self, opt_state: Dict, batch: Dict[str, torch.Tensor],
                  seed: int, comm_state=None):
         step = opt_state["step"]
-        with record_function("ssgd/grad"):
+        with annotate("ssgd/grad"):
             losses, grads = self.node_grads(batch, seed, step)
         metrics = {}
         if self.reducer is not None:
-            with record_function("ssgd/reduce"):
+            with annotate("ssgd/reduce"):
                 grads, tele, comm_state = self.reducer.reduce(
                     grads, seed, step, comm_state)
             metrics = {"comm_wire_bytes": tele.wire_bytes,
@@ -139,7 +140,7 @@ class SSGDStep:
         else:
             # no wire: the plain server-side average of the node gradients
             grads = {k: g.mean(0) for k, g in grads.items()}
-        with record_function("ssgd/update"):
+        with annotate("ssgd/update"):
             params = dict(self.model.named_parameters())
             for name, p in params.items():
                 p.grad = grads[name]

@@ -14,18 +14,21 @@ kernel variant is reached through a phase or rule ``kernel``); the
 ``quant:`` section picks registered codecs per surface: ``grad=`` the
 cotangent codec (on the base policy, so phases and rules inherit it),
 ``resid=`` the residual default (``memory: default=SPEC``), ``mu=`` and
-``nu=`` AdamW's stored moments. Runs on CUDA unless ``--device cpu``; logs
-the loss every ``max(steps // 10, 1)`` steps to stderr.
+``nu=`` AdamW's stored moments. A ``controller:`` clause in the dither
+section holds each layer's sparsity at its target. ``--run-dir DIR``
+records the run (the dither, memory, phase, train and monitor streams and a
+manifest) into DIR, rendered by ``python -m repro_torch.obs.report DIR``;
+``--escalate-monitors`` makes a critical health event (a non-finite loss)
+raise. Runs on CUDA unless ``--device cpu``; logs the loss every
+``max(steps // 10, 1)`` steps to stderr.
 
 Not ported yet (ROADMAP.md section 1): the flags ``--ckpt-dir``,
-``--ckpt-every`` (checkpoints, item 5), ``--run-dir``,
-``--escalate-monitors`` (obs, item 4) and ``--distributed`` (item 7), and
+``--ckpt-every`` (checkpoints, item 5) and ``--distributed`` (item 7), and
 the ``comm:`` section and ``quant: wire=`` (item 7.5), which raise.
 """
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Iterator, Optional, Sequence
 
 from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_model,
@@ -33,11 +36,12 @@ from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_model,
 from repro_torch.core.policy import DitherPolicy
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.program import merge_legacy_flags
+from repro_torch.launch.program import format_program, merge_legacy_flags
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.utils import get_logger
 
-log = logging.getLogger("repro_torch.train")
+log = get_logger("repro_torch.train")
 
 
 def batch_fn_for(model, batch: int, seq: int, device):
@@ -74,6 +78,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="DEPRECATED: use --program \"memory: ...\"")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--run-dir", default="",
+                    help="observability run directory: drains the metrics "
+                    "bus (dither/comm/memory/phase/train/monitor streams) "
+                    "into JSONL + a provenance manifest; render with "
+                    "'python -m repro_torch.obs.report <run-dir>'")
+    ap.add_argument("--escalate-monitors", action="store_true",
+                    help="with --run-dir: critical health events (NaN "
+                    "loss) raise instead of warn")
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is none)")
     return ap.parse_args(argv)
@@ -108,6 +120,20 @@ def build(args: argparse.Namespace):
                 "quant: resid= conflicts with the 'memory:' section "
                 "(its default= clause); specify one")
         memory_program = f"default={qo.resid}"
+    obs = None
+    if args.run_dir:
+        from repro_torch.obs import run_obs
+
+        ctrl = getattr(policy, "controller", None)
+        obs = run_obs(
+            args.run_dir,
+            context={"tool": "train", "arch": args.arch,
+                     "preset": args.preset, "steps": args.steps,
+                     "dither": args.dither, "s": args.s,
+                     "program": format_program(spec)},
+            escalate=args.escalate_monitors,
+            # the collapse detector arms at the controller's target
+            sparsity_setpoint=ctrl.target if ctrl is not None else None)
     trainer = Trainer(
         model,
         OptConfig(name="adamw", lr=args.lr, schedule="cosine",
@@ -117,7 +143,8 @@ def build(args: argparse.Namespace):
                   nu_codec=qo.nu if qo is not None else None),
         TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                       log_every=max(args.steps // 10, 1)),
-        policy=policy, memory_policy=memory_program or None, device=device)
+        policy=policy, memory_policy=memory_program or None, device=device,
+        obs=obs)
     fn = batch_fn_for(model, args.batch, args.seq, device)
 
     def batches() -> Iterator:
@@ -132,14 +159,14 @@ def build(args: argparse.Namespace):
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse, build and fit; returns the trainer (its ``history``, ``net``
     and ``opt_state``)."""
-    if not logging.getLogger().handlers:
-        logging.basicConfig(
-            level=logging.INFO,
-            format="%(asctime)s %(levelname).1s %(name)s :: %(message)s")
-    trainer, batches = build(parse_args(argv))
+    args = parse_args(argv)
+    trainer, batches = build(args)
     trainer.fit(batches)
     h = trainer.history
     log.info("final loss: %.4f", h[-1]["loss"] if h else float("nan"))
+    if args.run_dir:
+        log.info("run dir: %s (render: python -m repro_torch.obs.report %s)",
+                 args.run_dir, args.run_dir)
     return trainer
 
 

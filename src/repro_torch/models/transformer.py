@@ -9,7 +9,9 @@ telemetry tags and the dither streams (``fold_in(key, name_salt(name))``,
 the same key for every layer at a step, as in the reference) match. With
 ``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` with ``nothing_saveable``): its forward runs
-again in the backward, its residual encodes included.
+again in the backward, its residual encodes included; the rerun's context
+is marked ``recompute``, so each block's memory telemetry is recorded once
+a step, by the first run.
 
 Parameters (``LM.named_parameters()``): ``embed.table`` (V, d),
 ``layers.{i}.attn.{wq,wk,wv,wo}``, ``layers.{i}.mlp.{w_gate,w_up,w_down}``,
@@ -122,6 +124,19 @@ def _embed_inputs(net: LM, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _rerun_marked(block):
+    """``block`` for ``torch.utils.checkpoint``: its second call, the rerun
+    in the backward, gets its context marked ``recompute``."""
+    calls = []
+
+    def run(x, pos_b, mask, ctx):
+        if calls and ctx is not None:
+            ctx = dataclasses.replace(ctx, recompute=True)
+        calls.append(None)
+        return block(x, pos_b, mask, ctx)
+    return run
+
+
 def forward(net: LM, tokens: torch.Tensor, *,
             ctx: Optional[DitherCtx] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in the model's dtype."""
@@ -132,8 +147,8 @@ def forward(net: LM, tokens: torch.Tensor, *,
     mask = L.attention_mask(pos_b, pos_b)
     for block in net.layers:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, pos_b, mask, ctx, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_rerun_marked(block), x, pos_b, mask, ctx,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = block(x, pos_b, mask, ctx)
     x = L.rms_norm(x, net.head["ln_f"])

@@ -1,20 +1,23 @@
-"""Dither, residual-memory and comm telemetry.
+"""Dither, residual-memory, comm and fallback telemetry over the bus.
 
-Counterpart of the ``"dither"``, ``"memory"`` and ``"comm"`` streams of
-``repro.obs.metrics``, with the calls the training harness reads:
+Counterpart of ``repro.obs.metrics``: the named read/write calls over the
+built-in streams of the process default bus (``repro_torch.obs.bus``):
 
-* each backward appends one row ``[sparsity, bits, delta]`` per dithered
-  layer (:func:`emit`);
-* each forward that saves a residual for a backward appends one row
-  ``[measured, capacity, dense]`` bytes per dithered layer
-  (:func:`emit_memory`): the wire-equivalent occupancy, the device-resident
-  capacity of the encoding, and the dense store it replaces;
-* each compressed gradient exchange appends one row ``[wire, dense]``
-  bytes (:func:`emit_comm`, through ``repro_torch.comm.telemetry``).
+* :func:`emit` / :func:`rows` / ...        -> stream ``"dither"``: each
+  backward appends one row ``[sparsity, bits, delta]`` per dithered layer;
+* :func:`emit_memory` / ...                -> stream ``"memory"``: each
+  forward that saves a residual for a backward appends one row
+  ``[measured, capacity, dense]`` bytes per dithered layer (the
+  wire-equivalent occupancy, the device-resident capacity of the encoding,
+  the dense store it replaces);
+* :func:`emit_comm` / ...                  -> stream ``"comm"``: each
+  compressed gradient exchange appends ``[wire, dense]`` bytes (through
+  ``repro_torch.comm.telemetry``);
+* :func:`emit_kernel_fallbacks`            -> stream ``"fallback"``.
 
 Rows stay device tensors until a reader asks, so emitting costs no host
-sync. The store is module state shared by the process, like the reference's
-default bus: ``reset()`` starts a new run.
+sync. ``reset()`` starts a new run. The aggregations (:func:`overall_sparsity`
+and the rest) visit tags in the order of their first row.
 """
 from __future__ import annotations
 
@@ -24,40 +27,61 @@ import numpy as np
 import torch
 
 from repro_torch.core.nsd import QuantStats
+from repro_torch.obs.bus import get_bus
 
-_ROWS: Dict[str, List[torch.Tensor]] = {}
-_MEMORY: Dict[str, List[torch.Tensor]] = {}
-_COMM: Dict[str, List[torch.Tensor]] = {}
+STREAM_DITHER = "dither"
+STREAM_COMM = "comm"
+STREAM_MEMORY = "memory"
+STREAM_FALLBACK = "fallback"
 
 
 def reset() -> None:
-    _ROWS.clear()
-    _MEMORY.clear()
-    _COMM.clear()
+    """Clear every stream on the default bus."""
+    get_bus().reset()
 
+
+def _tags(stream: str) -> List[str]:
+    """A stream's tags in the order of their first row: the order the
+    port's aggregations have used since its first slice (the reference
+    sorts; an f32 mean over concatenated rows depends on their order)."""
+    return [t for s, t in get_bus().cursors() if s == stream]
+
+
+# ---------------------------------------------------------------------------
+# dither sparsity / bit-width / delta (stream "dither")
+# ---------------------------------------------------------------------------
 
 def emit(tag: str, stats: QuantStats) -> None:
     """Record one layer's stats (called from inside a backward pass)."""
     row = torch.stack([stats.sparsity, stats.max_bitwidth,
                        stats.delta.to(torch.float32)])
-    _ROWS.setdefault(tag, []).append(row)
+    get_bus().emit(STREAM_DITHER, tag, row)
 
 
 def tags() -> List[str]:
-    return list(_ROWS)
+    return _tags(STREAM_DITHER)
 
 
 def rows(tag: str) -> np.ndarray:
     """(n, 3) f32 array of [sparsity, bits, delta] records for a tag."""
-    if not _ROWS.get(tag):
-        return np.zeros((0, 3), np.float32)
-    return torch.stack(_ROWS[tag]).cpu().numpy()
+    return get_bus().rows(STREAM_DITHER, tag)
+
+
+def rows_since(tag: str, start: int) -> np.ndarray:
+    """Records from index ``start`` on, without restacking the history (the
+    sparsity controller's telemetry window reads these)."""
+    return get_bus().rows_since(STREAM_DITHER, tag, start)
+
+
+def row_count(tag: str) -> int:
+    return get_bus().row_count(STREAM_DITHER, tag)
 
 
 def _all_rows() -> np.ndarray:
-    if not any(_ROWS.values()):
+    all_rows = [r for r in (rows(t) for t in tags()) if len(r)]
+    if not all_rows:
         return np.zeros((0, 3), np.float32)
-    return np.concatenate([rows(t) for t in tags()], axis=0)
+    return np.concatenate(all_rows, axis=0)
 
 
 def overall_sparsity() -> float:
@@ -83,18 +107,17 @@ def emit_memory(tag: str, measured_bytes, capacity_bytes: int,
     tensor (the nsd wire figure): it stays there until a reader asks, and
     the two static counts stay host numbers, so emitting never copies to or
     waits for the device."""
-    _MEMORY.setdefault(tag, []).append(
-        (measured_bytes, float(capacity_bytes), float(dense_bytes)))
+    get_bus().emit(STREAM_MEMORY, tag, (measured_bytes, float(capacity_bytes),
+                                        float(dense_bytes)))
 
 
 def memory_tags() -> List[str]:
-    return list(_MEMORY)
+    return _tags(STREAM_MEMORY)
 
 
 def memory_rows(tag: str) -> np.ndarray:
     """(n, 3) f32 array of [measured, capacity, dense] byte records."""
-    return np.array([[float(m), c, d] for m, c, d in _MEMORY.get(tag, ())],
-                    np.float32).reshape(-1, 3)
+    return get_bus().rows(STREAM_MEMORY, tag)
 
 
 def memory_summary() -> Dict[str, Dict[str, float]]:
@@ -140,18 +163,16 @@ def emit_comm(tag: str, wire_bytes: torch.Tensor,
               dense_bytes: torch.Tensor) -> None:
     """Record one exchange's (wire, dense) byte counts, 0-d f32 tensors that
     stay on their device until a reader asks."""
-    _COMM.setdefault(tag, []).append(torch.stack([wire_bytes, dense_bytes]))
+    get_bus().emit(STREAM_COMM, tag, torch.stack([wire_bytes, dense_bytes]))
 
 
 def comm_tags() -> List[str]:
-    return list(_COMM)
+    return _tags(STREAM_COMM)
 
 
 def comm_rows(tag: str) -> np.ndarray:
     """(n, 2) f32 array of [wire_bytes, dense_bytes] records for a tag."""
-    if not _COMM.get(tag):
-        return np.zeros((0, 2), np.float32)
-    return torch.stack(_COMM[tag]).cpu().numpy()
+    return get_bus().rows(STREAM_COMM, tag)
 
 
 def comm_summary() -> Dict[str, Dict[str, float]]:
@@ -169,3 +190,21 @@ def comm_summary() -> Dict[str, Dict[str, float]]:
             "n_records": int(len(r)),
         }
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel fallback counters (stream "fallback")
+# ---------------------------------------------------------------------------
+
+def emit_kernel_fallbacks(*, bus=None) -> Dict[str, int]:
+    """Snapshot ``repro_torch.kernels.ops.KERNEL_FALLBACKS`` onto the bus:
+    one row a reason (tag ``kernels/`` + reason, value the cumulative count),
+    so a run directory records which structural forms left the kernel path.
+    Returns the snapshot. Host-side; ``RunObs.finish`` calls it."""
+    from repro_torch.kernels.ops import KERNEL_FALLBACKS
+
+    snap = dict(KERNEL_FALLBACKS)
+    bus = bus if bus is not None else get_bus()
+    for reason, count in sorted(snap.items()):
+        bus.record(STREAM_FALLBACK, "kernels/" + reason, [float(count)])
+    return snap

@@ -3,7 +3,10 @@
 Counterpart of ``benchmarks/harness.py::train_classifier``: SGD with
 momentum 0.9, weight decay 5e-4 and a step schedule (x0.1 at half the
 steps); one untimed warm-up step (step 0), then steps 1..steps-1 timed on
-the host clock around work that ends in a device synchronise. And of its
+the host clock around work that ends in a device synchronise. The policy may
+be a ``PolicyProgram``: its phases, rules and schedules resolve per step and
+layer, and its sparsity controller ticks after each step, outside the timed
+region (layer names found on batch 0). And of its
 ``measure_baseline_sparsity``: Table 1's baseline sparsity, through the
 tap probe (``repro_torch.core.probe``).
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs.paper_models import MODELS
 from repro_torch.core import probe
 from repro_torch.core.policy import VARIANTS, DitherCtx, DitherPolicy
+from repro_torch.core.schedule import ControllerDriver, PolicyProgram, as_program
 from repro_torch.data.synthetic import ClassifConfig, classification_batch
 from repro_torch.device import resolve_device
 from repro_torch.memory.policy import MemoryPolicy, as_memory_policy
@@ -54,7 +58,8 @@ def repeatable_f32() -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
+def train_classifier(model: CNNConfig,
+                     policy: Union[None, DitherPolicy, PolicyProgram], *,
                      steps: int = 60, batch: int = 64, lr: float = 0.05,
                      seed: int = 0, noise: float = 0.5,
                      memory: Union[None, str, MemoryPolicy] = None,
@@ -62,9 +67,10 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
                      device: Optional[torch.device] = None
                      ) -> Dict[str, float]:
     """Train ``model`` (a config from ``repro_torch.configs``) under
-    ``policy`` (None = plain backprop) and return acc (%), final_loss,
-    ms_per_step and, when the policy collects stats, sparsity (%) and
-    max_bits over every dithered layer and step. ``memory`` (a
+    ``policy`` (a DitherPolicy, a PolicyProgram, or None = plain backprop)
+    and return acc (%), final_loss, ms_per_step and, when the policy (the
+    program's base) collects stats, sparsity (%) and max_bits over every
+    dithered layer and step. ``memory`` (a
     ``MemoryPolicy`` or its spec string) selects each dithered layer's
     residual codec or remat; with stats on, the result then also carries
     ``residual_compression``, dense over measured residual bytes.
@@ -74,7 +80,8 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
     dev = resolve_device(device)
     memory = as_memory_policy(memory)
     repeatable_f32()
-    collect = policy is not None and policy.collect_stats
+    program = as_program(policy)
+    collect = program is not None and program.base.collect_stats
     if collect:
         metrics.reset()
     net = CNN(model, seed=seed, device=dev)
@@ -89,11 +96,19 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
     dcfg = ClassifConfig(n_classes=model.n_classes, img_size=model.img_size,
                          channels=model.in_channels, noise=noise, seed=seed)
 
+    ctrl = ControllerDriver(program)
+    if ctrl.active:
+        ctrl.ensure_init(lambda n, b, ctx: loss_fn(n, b, ctx=ctx), net,
+                         classification_batch(dcfg, 0, batch, device=dev),
+                         device=dev)
+
     def step(i: int) -> torch.Tensor:
         b = classification_batch(dcfg, i, batch, device=dev)
-        ctx = (DitherCtx(policy, seed=seed, step=state["step"], device=dev,
-                         memory=memory)
-               if policy is not None and policy.enabled else None)
+        phase = program.phase_policy_at(i) if program is not None else None
+        ctx = (DitherCtx(phase, seed=seed, step=state["step"], device=dev,
+                         memory=memory, program=program,
+                         ctrl=ctrl.state or None)
+               if phase is not None and program.step_enabled(phase) else None)
         for p in params.values():
             p.grad = None
         loss = loss_fn(net, b, ctx=ctx)
@@ -102,6 +117,7 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
         return loss.detach()
 
     step(0)  # warm-up: first-use kernel build and allocator growth
+    ctrl.tick()
     timed_s, losses = 0.0, []
     for i in range(1, steps):
         _sync(dev)
@@ -110,6 +126,7 @@ def train_classifier(model: CNNConfig, policy: Optional[DitherPolicy], *,
         _sync(dev)
         timed_s += time.perf_counter() - t0
         losses.append(float(loss))
+        ctrl.tick()  # its telemetry read is a host copy: not timed
     test = classification_batch(dcfg, 10**6, 512, device=dev)
     out = {"acc": float(accuracy(net, test)) * 100,
            "final_loss": losses[-1] if losses else math.nan,

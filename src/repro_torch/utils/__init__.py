@@ -1,0 +1,4 @@
+"""Host utilities shared by the port's entry points."""
+from repro_torch.utils.logging import get_logger
+
+__all__ = ["get_logger"]

@@ -117,9 +117,20 @@ def test_errors_match_reference(spec):
 
 
 def test_controller_clause_is_not_ported():
-    assert jsched.parse_program("controller:target=0.9").controller is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 3"):
-        sched.parse_program("phase@0=paper;controller:target=0.9")
+    """The ``controller:`` clause, once refused (ROADMAP.md section 1, item
+    3), parses as the reference's: the same controller, stats turned on,
+    the rest of the program unchanged (the clause's parity in full:
+    tests/test_torch_controller.py)."""
+    spec = "phase@0=paper;rule lm_head:off;controller:target=0.9,gain=3.0"
+    jprog, prog = jsched.parse_program(spec), sched.parse_program(spec)
+    assert prog.controller == sched.SparsityController(target=0.9, gain=3.0)
+    assert (prog.controller.target, prog.controller.gain,
+            prog.controller.min_scale, prog.controller.max_scale) == (
+        jprog.controller.target, jprog.controller.gain,
+        jprog.controller.min_scale, jprog.controller.max_scale)
+    assert prog.base.collect_stats and jprog.base.collect_stats
+    assert prog.replace(controller=None) == sched.parse_program(
+        "phase@0=paper;rule lm_head:off", DitherPolicy(collect_stats=True))
 
 
 def test_universal_rule_resolves_to_the_base():
