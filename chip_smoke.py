@@ -16,12 +16,15 @@ Phases (any failure exits non-zero and prints no result):
      masks;
   3b. hold the levels compact and expand kernels (chunk-local, and the
      one-launch wire kernels that lay out a whole chunk stream: levels,
-     bitmap and nnz; its decode) and the bitmap-unpack kernel bit for bit
+     bitmap and nnz; its decode; the paged expand that decodes a stack of
+     wire containers at once) and the bitmap-unpack kernel bit for bit
      against their plain versions at c1's residual size at batch 128
      (2,097,152 elements, 8,192 chunks) and at the edges (an all-zero and
      an all-non-zero chunk, an all-zero and an all-non-zero tensor, one
      chunk, 2^18 chunks for the wire kernels, n = 1000 through the wire
-     container), and the dequant product
+     container; for the paged expand gemma-2b's KV pages of 16 chunks, 64
+     and 4,096 of them, pages of 1 and of 40 chunks, repeated ids, an
+     all-zero and an all-non-zero page), and the dequant product
      within its band (relative L2 <= 8 sqrt(K) 2^-24 for a K-long
      contraction) at the c1 and c5 dx and dW shapes with full, empty and
      partial masks;
@@ -206,13 +209,33 @@ Phases (any failure exits non-zero and prints no result):
          step, no fallback;
      9c. ``repro_torch.train.obs_bench.bench(quick=True)`` gated against
          ``benchmarks/baselines/BENCH_obs_bench.json``;
-  10. print one JSON line naming the seven kernels (the NSD row carries its
+  10. serving (``repro_torch.serve``, ``repro_torch.launch.serve``):
+     10a. ``repro_torch.train.serve_bench.bench(quick=True)`` on the card
+         (gemma-2b's smoke model, the reference's 24-request trace, arms
+         dense, fp32, int8, nsd and preempt), every gate of
+         ``benchmarks/baselines/BENCH_serve_bench.json`` checked;
+     10b. ``python -m repro_torch.launch.serve --preset full --serve
+         "worker gemma-2b: batch=8;max_len=128;chunk=8;kv=nsd;page=16"
+         --requests 16 --new-tokens 16 --run-dir RUN`` through its
+         ``main``: every request served, the NSD, compact and expand
+         launches equal to what the run's micro-steps and sealed pages
+         imply (two paged expands a layer a micro-step; two NSD and two
+         compact launches a layer a sealed page; one of each a layer for
+         the pools' zero page), no fallback, no ``serve_stall`` event, the
+         run directory's serve rows; tokens a second, median and p99 tick
+         ms and peak device memory; one paged-expand call of the run held
+         bit for bit against its plain version and timed;
+     10c. the same requests under ``kv=fp32;page=16`` and with dense
+         buffers: their tokens equal; the nsd run's disagreement with
+         them printed;
+  11. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
-     kernel of its source under ``philox_uniform``; phase 5's log gives
+     kernel of its source under ``philox_uniform``, the expand row the
+     paged expand of phase 10b under ``serve_pages``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
      element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e, 4f, 6b, 6c, 7, 8 and 9);
-  11. print the JSON result line last.
+     runs of phases 4e, 4f, 6b, 6c, 7, 8, 9 and 10);
+  12. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -348,6 +371,18 @@ OBS_BASELINE = "benchmarks/baselines/BENCH_obs_bench.json"
 SPARSITY_BAND = 8.0  # percentage points (Table 1's own band)
 GRAD_BAND = 1e-5  # relative L2, kernels vs plain versions
 COMPRESSION_BAND = 1e-6  # relative, kernels vs plain versions
+
+# phase 10: serving. The reference's serve bench (five arms) and its
+# committed results; gemma-2b at full width through the serve launcher
+SERVE_BASELINE = "benchmarks/baselines/BENCH_serve_bench.json"
+SERVE_ARGS = ["--preset", "full", "--requests", "16", "--new-tokens", "16"]
+SERVE_SPEC = "worker gemma-2b: batch=8;max_len=128;chunk=8;{}"
+SERVE_REQUESTS, SERVE_NEW = 16, 16
+# every micro-step decodes each layer's K and V pages with one paged-expand
+# launch each; every page that seals encodes K and V (an NSD and a compact
+# launch each), and each layer's pool starts as one encoded zero page
+SERVE_EXPAND_PER_STEP = 2 * LM_BLOCKS
+SERVE_ENCODES_PER_SEAL = 2 * LM_BLOCKS
 
 KERNELS = {
     "nsd_quant": ("src/repro_torch/kernels/csrc/nsd_quant.cu",
@@ -1244,6 +1279,158 @@ def phase9(torch, card, dev, ms_7a):
         "obs_bench quick": ob_total}
 
 
+def phase10(torch, card, dev, same, time_ms, graph_ms):
+    """Phase 10: serving. 10a the serve bench on the card against the
+    reference's gates; 10b gemma-2b at full width with NSD pages through
+    the serve launcher; 10c the same requests with fp32 pages and dense
+    buffers. Returns the launches of each run by kernel, for the kernels
+    line, and the paged expand's figures."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bench import SuiteRun
+    from repro_torch.kernels import build, levels, ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs.bus import MetricsBus, set_bus
+    from repro_torch.obs.runlog import read_run
+    from repro_torch.quant import wire
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import kvcache
+    from repro_torch.train import serve_bench
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+
+    # -- 10a: the serve bench ----------------------------------------------
+    build.reset_launches()
+    res = serve_bench.bench(quick=True, device=dev)
+    bench_total = dict(build.LAUNCHES)
+    for r in res:
+        log(f"phase 10a: {r.name} {r.value!r} {r.unit} {json.dumps(r.derived)}")
+    rep = serve_bench.check(res, SuiteRun.from_dict(json.loads(
+        (root / SERVE_BASELINE).read_text())))
+    log("phase 10a: " + rep.render(verbose=True).replace("\n", "\nphase 10a: "))
+    check(rep.ok, "10a: the serve bench misses the reference's gates")
+    log(f"phase 10a: serve_bench.bench(quick=True) {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {{{', '.join(f'{k!r}: {v}' for k, v in bench_total.items() if v)}}} "
+        f"({card})")
+
+    # -- 10b and 10c: gemma-2b at full width through the launcher ----------
+    real_step, real_seal = engine_mod.Engine.step, kvcache.PagedKV._seal
+    real_run = engine_mod.Engine._run_chunk
+    real_expand = levels.levels_expand_pages
+    seen = {}
+
+    def timed_step(self):
+        t0 = time.perf_counter()
+        real_step(self)
+        seen["ticks"].append((time.perf_counter() - t0) * 1e3)
+
+    def counted_run(self, tok_block, n_feed, pos0):
+        seen["micro"] += tok_block.shape[1]
+        return real_run(self, tok_block, n_feed, pos0)
+
+    def counted_seal(self, rows):
+        if self.key == kvcache.layer_key(0):
+            seen["seals"] += len(rows)
+        return real_seal(self, rows)
+
+    def kept_expand(lv, bm, ids):
+        seen["expand_call"] = (lv, bm, ids)  # the last: the most pages sealed
+        return real_expand(lv, bm, ids)
+
+    runs, totals = {}, {}
+    for kv in ("kv=nsd;page=16", "kv=fp32;page=16", "page=0"):
+        rd = tempfile.mkdtemp(prefix="chip_smoke_serve")
+        argv = ["--serve", SERVE_SPEC.format(kv), *SERVE_ARGS, "--run-dir", rd]
+        seen.update(ticks=[], micro=0, seals=0)
+        ops.KERNEL_FALLBACKS.clear()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        engine_mod.Engine.step, engine_mod.Engine._run_chunk = timed_step, counted_run
+        kvcache.PagedKV._seal, levels.levels_expand_pages = counted_seal, kept_expand
+        set_bus(MetricsBus())  # the run directory gets this run's rows only
+        t0 = time.perf_counter()
+        try:
+            sup = launch_serve.main(argv)
+        finally:
+            engine_mod.Engine.step, engine_mod.Engine._run_chunk = real_step, real_run
+            kvcache.PagedKV._seal, levels.levels_expand_pages = real_seal, real_expand
+            set_bus(None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        totals[kv] = launched = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        w = sup.workers["gemma-2b"]
+        runs[kv] = w.results
+        _, streams = read_run(rd)
+        shutil.rmtree(rd, ignore_errors=True)
+        check(sorted(w.results) == list(range(SERVE_REQUESTS))
+              and all(len(v) == SERVE_NEW for v in w.results.values()),
+              f"10b {kv}: served {sorted(w.results)}")
+        check(not ops.KERNEL_FALLBACKS, f"10b {kv}: fallbacks {ops.KERNEL_FALLBACKS}")
+        stalls = [e for e in streams.get("monitor", []) if e.get("kind") == "serve_stall"]
+        check(not stalls, f"10b {kv}: {stalls}")
+        rows = streams.get("serve", [])
+        check(len(rows) == w.engine._tick
+              and sum(r["gen_tokens"] for r in rows) == SERVE_REQUESTS * SERVE_NEW,
+              f"10b {kv}: {len(rows)} serve rows for {w.engine._tick} ticks")
+        want = {}
+        if "nsd" in kv:
+            enc = LM_BLOCKS + SERVE_ENCODES_PER_SEAL * seen["seals"]
+            want = {"nsd_quant": enc, "levels_compact": enc,
+                    "levels_expand": SERVE_EXPAND_PER_STEP * seen["micro"]}
+        check({k: v for k, v in launched.items() if v} == want,
+              f"10b {kv}: launches {launched}, want {want}")
+        first, ticks = seen["ticks"][0], sorted(seen["ticks"][1:])
+        log(f"phase 10b: python -m repro_torch.launch.serve {' '.join(argv)}: "
+            f"{len(w.results)}/{SERVE_REQUESTS} requests, {w.engine._tick} ticks, "
+            f"{seen['micro']} micro-steps, {seen['seals']} pages sealed a layer, "
+            f"launches {{{', '.join(f'{k!r}: {v}' for k, v in launched.items() if v)}}} "
+            f"(want {want}), no fallback, no serve_stall, {len(rows)} serve rows; "
+            f"{SERVE_REQUESTS * SERVE_NEW / seconds:.2f} tokens/s over {seconds:.2f} s "
+            f"(the model's build included); the first tick {first:.3f} ms, the "
+            f"other {len(ticks)} median {statistics.median(ticks):.3f} ms, p99 "
+            f"{ticks[min(len(ticks) - 1, int(0.99 * len(ticks)))]:.3f} ms; peak "
+            f"device memory {(peak - held) / 2**30:.3f} GiB above the "
+            f"{held / 2**30:.3f} GiB held before the run ({card})")
+        del sup, w
+        torch.cuda.empty_cache()
+    check(runs["kv=fp32;page=16"] == runs["page=0"],
+          "10c: fp32 pages and dense buffers disagree")
+    dense = runs["page=0"]
+    mism = sum(a != b for u in dense for a, b in zip(dense[u], runs["kv=nsd;page=16"][u]))
+    log(f"phase 10c: fp32 pages and dense buffers give the same tokens for all "
+        f"{SERVE_REQUESTS} requests; nsd pages disagree on {mism} of "
+        f"{SERVE_REQUESTS * SERVE_NEW} tokens")
+
+    # one paged expand of 10b at its shape: bit for bit, timed
+    lv, bm, ids = seen["expand_call"]
+    got = levels.levels_expand_pages(lv, bm, ids)
+    same("levels_expand", (got,), (levels.levels_expand_pages_plain(lv, bm, ids),),
+         "paged, phase 10b's call")
+    M, C = ids.shape[0], bm.shape[1]
+    live = int(wire.popcount_u8(bm[ids.long()]).sum())
+    # read the ids, the bitmaps and the live levels of the M pages; write k
+    nbytes = M * 4 + M * C * 32 + live + M * C * 256
+    pages = {"launches": totals["kv=nsd;page=16"]["levels_expand"],
+             "ms": time_ms(lambda: levels.levels_expand_pages(lv, bm, ids)),
+             "graph_ms": graph_ms(lambda: levels.levels_expand_pages(lv, bm, ids)),
+             "plain_ms": time_ms(lambda: levels.levels_expand_pages_plain(lv, bm, ids),
+                                 launches=2, groups=3),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None}  # no one PyTorch call expands a stack
+    log(f"phase 10b: the paged expand of one layer's view ({M} pages of {C} chunks, "
+        f"{live} live levels): {pages['ms']:.4f} ms (device {pages['graph_ms']:.4f} ms "
+        f"in graph replay), bound {pages['bound_ms']:.4f} ms (bytes), plain "
+        f"{pages['plain_ms']:.4f} ms ({card})")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"serve_bench quick": bench_total,
+            **{f"gemma-2b serve {kv} 16 requests": n for kv, n in totals.items()}}, pages
+
+
 def main() -> int:
     import torch
 
@@ -1433,6 +1620,28 @@ def main() -> int:
              f"wire {what}")
         check(torch.equal(out, kk), f"levels_expand wire {what}: not the inverse of compact")
     del got, out, kk
+    # the paged expand: a stack of wire containers, the ids in the grid;
+    # gemma-2b's KV pages (16 x 1 x 256 f32: 16 chunks), the 8 x 8 pages of
+    # a layer's view and a 4,096-page stack, and 1- and 40-chunk pages
+    for what, (n_pg, c_pg, m_pg) in (("gemma-2b pages", (64, 16, 64)),
+                                     ("4096 pages", (4096, 16, 4096)),
+                                     ("1-chunk pages", (9, 1, 17)),
+                                     ("40-chunk pages", (20, 40, 33))):
+        kk = sparse_levels(n_pg * c_pg, 0.6).reshape(n_pg, c_pg, 256)
+        kk[0] = 0
+        kk[1] = sparse_levels(c_pg, 1.0)
+        lv_pg = torch.empty(n_pg, c_pg * 256, dtype=torch.int8, device=dev)
+        bm_pg = torch.empty(n_pg, c_pg, 32, dtype=torch.uint8, device=dev)
+        for i in range(n_pg):
+            lv_pg[i], bm_pg[i], _ = levels.levels_compact_wire_plain(kk[i])
+        ids = torch.randint(0, n_pg, (m_pg,), device=dev, generator=gen)
+        ids[:3] = torch.tensor([0, 1, 1], device=dev)  # repeated ids
+        out = levels.levels_expand_pages(lv_pg, bm_pg, ids)
+        same("levels_expand", (out,),
+             (levels.levels_expand_pages_plain(lv_pg, bm_pg, ids),), f"paged {what}")
+        check(torch.equal(out, kk[ids.long()]), f"levels_expand paged {what}: "
+                                                f"not the inverse of compact")
+    del kk, out, lv_pg, bm_pg
     for n in (1000, 2_097_152):  # not a chunk multiple; c1's residual size
         xr = torch.relu(torch.randn(n, device=dev, generator=gen))
         ur = torch.rand(n, device=dev, generator=gen) - 0.5
@@ -1464,7 +1673,7 @@ def main() -> int:
                 rels.append(banded("bsp_matmul_dequant", got, want, contraction,
                                    f"{name} {'dW' if ta else 'dx'} mask={mname}"))
     torch.cuda.synchronize()
-    log(f"phase 3b: compact, expand (chunk-local and wire) and unpack bit-exact "
+    log(f"phase 3b: compact, expand (chunk-local, wire and paged) and unpack bit-exact "
         f"against their plain versions (max abs err "
         f"{max(max_err[k] for k in ('levels_compact', 'levels_expand', 'bitmap_unpack'))}), "
         f"wire container n=1000 and n=2097152 identical on both routes (fed and "
@@ -2388,7 +2597,15 @@ def main() -> int:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in lm_launches.items()})
 
-    # -- phases 10 and 11 --------------------------------------------------
+    # -- phase 10: serving ---------------------------------------------------
+    serve_launches, pages = phase10(torch, card, dev, same, time_ms, graph_ms)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in serve_launches.items()})
+        if row["name"] == "levels_expand":
+            row["serve_pages"] = pages
+
+    # -- phases 11 and 12 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "levels_expand_launch": (_P, _P, _P, _I, _P),
     "levels_compact_wire_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
     "levels_expand_wire_launch": (_P, _P, _P, _P, _I, _I, _P),
+    "levels_expand_pages_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "bsp_matmul_dequant_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _lib = None

@@ -40,6 +40,14 @@
 // byte of the output is written once, with no memset of it and no host read
 // of nnz. The status words and the ticket are cleared by one cudaMemsetAsync
 // on the caller's stream inside the launch call, so a CUDA graph replays it.
+//
+// The paged expand decodes many equal-capacity containers (the sealed pages
+// of a paged KV cache, src/repro/serve/kvcache.py's gather and decode of
+// every slot's pages) in one launch. The container index is the grid's y;
+// block (x, y) reads container ids[y] of the stack and writes output y, and
+// each y has its own status words and ticket, so the look-back stays inside
+// one container. The single-stream wire expand is the same kernel with one y
+// and no ids.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -266,15 +274,23 @@ levels_compact_wire_kernel(const int8_t* __restrict__ k, int8_t* __restrict__ le
   if (threadIdx.x == 0 && c0 + valid == C) *nnz = start + total;
 }
 
-// levels (C*256,) compacted in flat order, bitmap (C, 32) -> out (C, 256).
+// levels (C*256,) compacted in flat order, bitmap (C, 32) -> out (C, 256);
+// for y > 0 or ids, container ids[y] (y without ids) of a stack of such
+// containers -> out[y].
 __global__ void __launch_bounds__(kThreads)
 levels_expand_wire_kernel(const int8_t* __restrict__ levels,
-                          const uint8_t* __restrict__ bitmap, int8_t* __restrict__ out,
+                          const uint8_t* __restrict__ bitmap,
+                          const int32_t* __restrict__ ids, int8_t* __restrict__ out,
                           unsigned long long* __restrict__ status, int C) {
   __shared__ __align__(16) uint8_t buf[kWireBytes + 32];
   __shared__ int counts[kWireChunks];
   __shared__ int s_tile, s_start, s_total;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t page = ids ? static_cast<size_t>(ids[blockIdx.y]) : blockIdx.y;
+  levels += page * C * kChunk;
+  bitmap += page * C * 32;
+  out += static_cast<size_t>(blockIdx.y) * C * kChunk;
+  status += static_cast<size_t>(blockIdx.y) * (gridDim.x + 1);
   const int tile = take_ticket(status, &s_tile);
   const int c0 = tile * kWireChunks;
 
@@ -335,13 +351,15 @@ extern "C" int levels_expand_launch(const int8_t* lv, const int8_t* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wire kernels' workspace: one status word per block and the ticket.
+// The wire kernels' workspace: one status word per block and the ticket, for
+// each of `streams` chunk streams.
 static int wire_clear(unsigned long long* workspace, int workspace_words, int C,
-                      cudaStream_t stream, int* blocks) {
+                      int streams, cudaStream_t stream, int* blocks) {
   *blocks = (C + kWireChunks - 1) / kWireChunks;
-  if (workspace_words < *blocks + 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long words = static_cast<long long>(*blocks + 1) * streams;
+  if (workspace_words < words) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaMemsetAsync(
-      workspace, 0, sizeof(unsigned long long) * (*blocks + 1), stream));
+      workspace, 0, sizeof(unsigned long long) * words, stream));
 }
 
 // k: (C, 256) int8; levels: (C*256,) int8; bitmap: (C, 32) uint8; nnz: one
@@ -353,7 +371,7 @@ extern "C" int levels_compact_wire_launch(const int8_t* k, int8_t* levels,
                                           int workspace_words, int C,
                                           cudaStream_t stream) {
   int blocks;
-  const int rc = wire_clear(workspace, workspace_words, C, stream, &blocks);
+  const int rc = wire_clear(workspace, workspace_words, C, 1, stream, &blocks);
   if (rc != 0) return rc;
   levels_compact_wire_kernel<<<blocks, kThreads, 0, stream>>>(k, levels, bitmap, nnz,
                                                              workspace, C);
@@ -367,9 +385,27 @@ extern "C" int levels_expand_wire_launch(const int8_t* levels, const uint8_t* bi
                                          int workspace_words, int C,
                                          cudaStream_t stream) {
   int blocks;
-  const int rc = wire_clear(workspace, workspace_words, C, stream, &blocks);
+  const int rc = wire_clear(workspace, workspace_words, C, 1, stream, &blocks);
   if (rc != 0) return rc;
-  levels_expand_wire_kernel<<<blocks, kThreads, 0, stream>>>(levels, bitmap, out,
-                                                            workspace, C);
+  levels_expand_wire_kernel<<<blocks, kThreads, 0, stream>>>(levels, bitmap, nullptr,
+                                                            out, workspace, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// levels: (N, C*256) int8 and bitmap: (N, C, 32) uint8, N containers of C
+// chunks each; ids: (M,) int32 in [0, N); out: (M, C, 256) int8, out[m] the
+// expand of container ids[m]; workspace: at least M (C/32 + 2) zeroable
+// 8-byte words. 1 <= M <= 65535, N*C*256 < 2^31 (checked by the Python
+// wrapper).
+extern "C" int levels_expand_pages_launch(const int8_t* levels, const uint8_t* bitmap,
+                                          const int32_t* ids, int8_t* out,
+                                          unsigned long long* workspace,
+                                          int workspace_words, int C, int M,
+                                          cudaStream_t stream) {
+  int blocks;
+  const int rc = wire_clear(workspace, workspace_words, C, M, stream, &blocks);
+  if (rc != 0) return rc;
+  levels_expand_wire_kernel<<<dim3(blocks, M), kThreads, 0, stream>>>(
+      levels, bitmap, ids, out, workspace, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,11 +23,17 @@ reference computes with its kernel and the XLA ops around it
                                  bitmap (C, 32) uint8, LSB first; nnz, 0-d
                                  int32)
     expand_wire(levels, bitmap)  the inverse -> (C, 256) int8
+    expand_pages(levels, bitmap, ids)
+                                 a stack of N such containers, levels
+                                 (N, C*256) and bitmap (N, C, 32), and ids
+                                 (M,) -> (M, C, 256) int8: the expand of
+                                 container ids[m] at m (the sealed pages of
+                                 a paged KV cache, ``repro_torch.serve``)
 
 Each is one kernel launch on the card (the chunk offsets come from a
-decoupled look-back inside the kernel); their plain versions are the
-chunk-local functions composed with a cumsum over the per-chunk counts and
-one scatter or gather.
+decoupled look-back inside the kernel, inside each container for the paged
+expand); their plain versions are the chunk-local functions composed with a
+cumsum over the per-chunk counts and one scatter or gather.
 
 The reference keeps its chunks as columns, (256, C), for the TPU's sublane
 rolls; the port takes them as rows, the order the flat tensor has in memory.
@@ -125,6 +131,39 @@ def levels_expand_wire_plain(levels: torch.Tensor, bitmap: torch.Tensor
     return levels_expand_plain(local, mask)
 
 
+def _check_pages(levels: torch.Tensor, bitmap: torch.Tensor,
+                 ids: torch.Tensor) -> int:
+    if (bitmap.dim() != 3 or bitmap.shape[2] != CHUNK // 8
+            or levels.shape != (bitmap.shape[0], bitmap.shape[1] * CHUNK)
+            or ids.dim() != 1):
+        raise ValueError(f"levels_expand_pages: want levels (N, C*{CHUNK}), "
+                         f"bitmap (N, C, {CHUNK // 8}) and ids (M,), got "
+                         f"{tuple(levels.shape)}, {tuple(bitmap.shape)} and "
+                         f"{tuple(ids.shape)}")
+    return bitmap.shape[1]
+
+
+def levels_expand_pages_plain(levels: torch.Tensor, bitmap: torch.Tensor,
+                              ids: torch.Tensor) -> torch.Tensor:
+    """The paged expand kernel's function in plain torch ops, on any device:
+    :func:`levels_expand_wire_plain` of each selected container, written
+    over the containers at once (the chunks' starts from a cumsum inside
+    each container)."""
+    C = _check_pages(levels, bitmap, ids)
+    idx = ids.to(torch.int64)
+    lv, bm = levels[idx], bitmap[idx]  # (M, C*256), (M, C, 32)
+    M = lv.shape[0]
+    mask = wire.unpack_bitmap(bm).to(torch.int8)  # (M, C, 256)
+    counts = mask.sum(2, dtype=torch.int32)
+    starts = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    i = torch.arange(CHUNK, dtype=torch.int32, device=levels.device)
+    at = (starts[..., None] + i).clamp(max=C * CHUNK - 1).reshape(M, C * CHUNK)
+    got = torch.gather(lv, 1, at.to(torch.int64)).reshape(M, C, CHUNK)
+    local = torch.where(i < counts[..., None], got, torch.zeros_like(got))
+    return levels_expand_plain(local.reshape(-1, CHUNK),
+                               mask.reshape(-1, CHUNK)).reshape(M, C, CHUNK)
+
+
 def _kernel_operands(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -135,13 +174,14 @@ def _kernel_operands(name: str, *tensors: torch.Tensor) -> None:
     build.check_cuda_operands(name, *tensors)
 
 
-def _workspace(name: str, C: int, device) -> torch.Tensor:
-    """The wire kernels' look-back status words and ticket (cleared by the
-    launch itself)."""
+def _workspace(name: str, C: int, device, streams: int = 1) -> torch.Tensor:
+    """The wire kernels' look-back status words and ticket, for each of
+    ``streams`` chunk streams (cleared by the launch itself)."""
     if C * CHUNK >= 2**31:
         raise ValueError(f"{name}: {C} chunks: offsets must fit int32")
     blocks = -(-C // WIRE_CHUNKS_PER_BLOCK)
-    return torch.empty(blocks + 1, dtype=torch.int64, device=device)
+    return torch.empty(streams * (blocks + 1), dtype=torch.int64,
+                       device=device)
 
 
 def levels_compact(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -217,4 +257,36 @@ def levels_expand_wire(levels: torch.Tensor, bitmap: torch.Tensor
         build.launch("levels_expand", "levels_expand_wire_launch",
                      build.ptr(levels), build.ptr(bitmap), build.ptr(out),
                      build.ptr(ws), ws.numel(), C)
+    return out
+
+
+def levels_expand_pages(levels: torch.Tensor, bitmap: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """levels: (N, C*256) int8 and bitmap: (N, C, 32) uint8, a stack of N
+    wire containers of C chunks each; ids: (M,) container indices in [0,
+    N). Returns (M, C, 256) int8, row m the expand of container ids[m]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    launch for all M containers, counted under ``levels_expand``), or
+    raise."""
+    C = _check_pages(levels, bitmap, ids)
+    if levels.device.type == "cpu":
+        return levels_expand_pages_plain(levels, bitmap, ids)
+    _kernel_operands("levels_expand_pages", levels)
+    if bitmap.dtype != torch.uint8:
+        raise TypeError(f"levels_expand_pages: bitmap must be uint8, got "
+                        f"{bitmap.dtype}")
+    ids = ids.to(torch.int32).contiguous()
+    build.check_cuda_operands("levels_expand_pages", levels, bitmap, ids,
+                              align=1)
+    M = ids.shape[0]
+    if levels.numel() >= 2**31 or M > 65535:
+        raise ValueError(f"levels_expand_pages: {levels.shape[0]} containers "
+                         f"of {C} chunks, {M} ids: offsets must fit int32 "
+                         f"and M <= 65535")
+    out = torch.empty((M, C, CHUNK), dtype=torch.int8, device=levels.device)
+    if M and C:
+        ws = _workspace("levels_expand_pages", C, levels.device, streams=M)
+        build.launch("levels_expand", "levels_expand_pages_launch",
+                     build.ptr(levels), build.ptr(bitmap), build.ptr(ids),
+                     build.ptr(out), build.ptr(ws), ws.numel(), C, M)
     return out

@@ -20,7 +20,10 @@ Built-in detectors:
 * :class:`MemoryRatioMonitor` residual compression (dense / measured) below
                               a floor;
 * :class:`BoundMonitor`       the compressed reduce's pointwise error bound
-                              above a ceiling.
+                              above a ceiling;
+* :class:`ServeMonitor`       a serving engine stalled (work pending, no
+                              token fed; critical) or backlogged (rolling
+                              queue depth above a ceiling).
 
 A monitor reads the bus and logs; it never changes the run's policy.
 """
@@ -258,6 +261,50 @@ class BoundMonitor(Monitor):
                     message=f"{tag}: reduce error bound {worst:.3g} above "
                             f"{self.max_bound:.3g}",
                     value=worst, threshold=self.max_bound, tag=tag))
+        return events
+
+
+class ServeMonitor(Monitor):
+    """Serving-engine health on the ``serve`` stream (tag = worker name).
+
+    Two detectors in one consumer: a *stall* (critical) — rows show work in
+    the system (active slots or queued requests) but no tokens fed for
+    ``min_rows`` consecutive ticks, i.e. the engine is wedged — and a
+    *backlog* (warning) — rolling mean queue depth above ``max_backlog``,
+    i.e. admission is not keeping up with arrivals.
+    """
+
+    stream = "serve"
+    kind = "serve_stall"
+
+    def __init__(self, max_backlog: float = 32.0, *, min_rows: int = 8,
+                 window: int = 50, bus: Optional[MetricsBus] = None):
+        super().__init__(window=window, bus=bus)
+        self.max_backlog = float(max_backlog)
+        self.min_rows = int(min_rows)
+
+    def tick(self, step: int) -> List[MonitorEvent]:
+        events = []
+        for tag, _new in self._consume():
+            win = self.window_rows(tag)
+            if len(win) < self.min_rows:
+                continue
+            tail = win[-self.min_rows:]
+            busy = (tail[:, 1] + tail[:, 2]) > 0  # active_slots + queue
+            fed = tail[:, 3]
+            if busy.all() and float(fed.sum()) == 0.0:
+                events.append(MonitorEvent(
+                    kind=self.kind, severity=SEV_CRITICAL, step=step,
+                    message=f"{tag}: {self.min_rows} ticks with work "
+                            f"pending but zero tokens fed (engine stalled)",
+                    value=0.0, threshold=1.0, tag=tag))
+            backlog = float(win[:, 2].mean())
+            if backlog > self.max_backlog:
+                events.append(MonitorEvent(
+                    kind="serve_backlog", severity=SEV_WARNING, step=step,
+                    message=f"{tag}: rolling queue depth {backlog:.1f} "
+                            f"above {self.max_backlog:.0f}",
+                    value=backlog, threshold=self.max_backlog, tag=tag))
         return events
 
 

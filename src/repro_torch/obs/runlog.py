@@ -228,15 +228,17 @@ class RunObs:
 
 
 def run_obs(run_dir: str, *, context: Optional[Dict[str, Any]] = None,
-            escalate: bool = False,
+            monitors=None, escalate: bool = False,
             sparsity_setpoint: Optional[float] = None,
             bus: Optional[MetricsBus] = None) -> RunObs:
-    """Standard RunObs: run log in ``run_dir``, default monitor set, the
-    process tracer. ``sparsity_setpoint`` arms the collapse detector (pass
-    the controller target when the run has one)."""
+    """Standard RunObs: run log in ``run_dir``, the process tracer, and the
+    detector set ``monitors`` (default: the training set, whose collapse
+    detector ``sparsity_setpoint`` arms; pass the controller target when
+    the run has one)."""
     runlog = RunLog(run_dir, bus=bus, context=context)
     set_log_context(run_id=runlog.run_id)
     suite = MonitorSuite(
-        default_monitors(sparsity_setpoint=sparsity_setpoint, bus=bus),
+        monitors if monitors is not None
+        else default_monitors(sparsity_setpoint=sparsity_setpoint, bus=bus),
         escalate=escalate, bus=bus)
     return RunObs(runlog=runlog, tracer=get_tracer(), monitors=suite)

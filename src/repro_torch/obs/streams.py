@@ -6,8 +6,8 @@ names and a one-line description, so that the run log
 (``repro_torch.obs.runlog``) and the offline report
 (``repro_torch.obs.report``) name columns instead of guessing at positional
 tuples. The nine built-in streams are the reference's, with the same names,
-columns and order (a run manifest embeds them); ``serve`` and ``overlap``
-have no emitter in the port yet.
+columns and order (a run manifest embeds them); ``overlap`` has no
+emitter in the port yet.
 
 Registration is idempotent by value: registering an identical stream again
 is a no-op, registering a different schema under an existing name raises.

@@ -677,3 +677,65 @@ def test_adamw_m8u8_step_on_the_card_matches_the_cpu(cuda, chunk, monkeypatch):
                                    rtol=2.0 ** -22, atol=0)
     torch.testing.assert_close(sg["master"]["emb"].cpu(), sc["master"]["emb"],
                                rtol=1e-6, atol=0)
+
+
+# The paged expand: a stack of wire containers decoded in one launch, the
+# container index in the grid (gemma-2b's KV pages are 16 chunks; 40-chunk
+# pages take two blocks each, so the look-back runs inside a page).
+PAGE_CASES = [(64, 16, 64), (4096, 16, 4096), (9, 1, 17), (20, 40, 33), (3, 2, 1)]
+
+
+@pytest.mark.parametrize("n,c,m", PAGE_CASES, ids=str)
+def test_paged_expand_matches_plain(cuda, n, c, m):
+    k = _wire_input(n * c, 0.6, cuda, n + c).reshape(n, c, 256)
+    k[0] = 0
+    k[-1] = _wire_input(c, 1.0, cuda, 7).reshape(c, 256)
+    lv = torch.empty(n, c * 256, dtype=torch.int8, device=cuda)
+    bm = torch.empty(n, c, 32, dtype=torch.uint8, device=cuda)
+    for i in range(n):
+        lv[i], bm[i], _ = levels.levels_compact_wire_plain(k[i])
+    g = torch.Generator(device=cuda).manual_seed(m)
+    ids = torch.randint(0, n, (m,), device=cuda, generator=g)
+    ids[0] = n - 1
+    before = build.LAUNCHES["levels_expand"]
+    out = levels.levels_expand_pages(lv, bm, ids)
+    assert build.LAUNCHES["levels_expand"] == before + 1
+    assert torch.equal(out, levels.levels_expand_pages_plain(lv, bm, ids))
+    assert torch.equal(out, k[ids])
+    assert torch.equal(out, levels.levels_expand_pages(lv, bm, ids))  # again
+
+
+def test_nsd_pages_serve_on_the_kernels(cuda):
+    """The engine with nsd pages on gemma-2b's smoke model: every request
+    served, the launches the run's micro-steps and sealed pages imply, and
+    each layer's pools decoded by the paged expand equal to its plain
+    version."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_model
+    from repro_torch.serve import Engine, Request, ServeConfig, kvcache
+
+    m = get_smoke_model("gemma-2b")
+    eng = Engine(m, m.init(0, cuda), ServeConfig(max_batch=4, max_len=32,
+                                                 kv_mode="nsd", kv_page=8))
+    rng = np.random.default_rng(0)
+    for uid in range(6):
+        eng.submit(Request(uid, rng.integers(0, 512, 3 + uid), max_new_tokens=6))
+    micro = []
+    real = eng._run_chunk
+    eng._run_chunk = lambda tb, nf, p0: micro.append(tb.shape[1]) or real(tb, nf, p0)
+    build.reset_launches()
+    out = eng.run(max_ticks=64)
+    assert sorted(out) == list(range(6)) and all(len(v) == 6 for v in out.values())
+    # positions written: the prompt and all but the last generated token
+    seals = sum((3 + uid + 5) // 8 for uid in range(6))
+    assert build.LAUNCHES["levels_expand"] == 2 * m.cfg.n_layers * sum(micro)
+    assert build.LAUNCHES["nsd_quant"] == build.LAUNCHES["levels_compact"] \
+        == 2 * m.cfg.n_layers * seals
+    ids = torch.arange(eng.sched.pool.n_pages, device=cuda)
+    for c in eng.cache:
+        assert isinstance(c, kvcache.PagedKV)
+        for pool in (c.pool_k, c.pool_v):
+            assert torch.equal(
+                levels.levels_expand_pages(pool.levels, pool.bitmap, ids),
+                levels.levels_expand_pages_plain(pool.levels, pool.bitmap, ids))
