@@ -228,14 +228,41 @@ Phases (any failure exits non-zero and prints no result):
      10c. the same requests under ``kv=fp32;page=16`` and with dense
          buffers: their tokens equal; the nsd run's disagreement with
          them printed;
-  11. print one JSON line naming the seven kernels (the NSD row carries its
+  11. checkpoints, resume and fault tolerance
+     (``repro_torch.train.{checkpoint,fault_tolerance}``,
+     ``repro_torch.data.ShardedLoader``) and the two-level reduces:
+     11a. phase 6a's node gradients through ``hier`` (N = 8 in 2 pods, N =
+         6 in 3) and ``butterfly`` (N = 8 in 4 pods, N = 6 in 3: the
+         ragged pre- and post-fold), kernel route against plain route: the
+         mean, every pack, the wire, dense, ICI and DCN bytes,
+         ``peak_dcn_bytes`` and the bound bit for bit, no host sync, the
+         launches the code implies; overlap bucketing at 262,144 B over
+         VGG11's leaves (N = 4, hier in 2 pods) equal to the blocking
+         reduce (the means bit for bit) and bit-exact across routes;
+     11b. ``ElasticSSGD`` on VGG11-CIFAR at full width, variant=kernel, 32
+         images a node, ``hier`` in 2 pods: 2 steps at N = 8, ``resize(6)``
+         (pods stay 2) and ``resize(3)`` (pods become 1), a step after
+         each, parameters, moments and ``ctrl`` equal to the saved ones bit
+         for bit; then a ``butterfly`` driver (N = 8, 4 pods) resumed from
+         that checkpoint for one step; then ``topk_ef`` under ``ps``
+         resized 4 -> 2 -> 6 with its EF residuals bit for bit; the exact
+         launches of every step, each save's blocking time (gather plus
+         drain) and its writer's time;
+     11c. gemma-2b's smoke preset through the launcher with ``--ckpt-dir``
+         and ``--ckpt-every 2`` on phase 7a's program for 4 steps; a
+         ``Trainer`` resumed from its step-2 checkpoint on a
+         ``ShardedLoader(start_step=2)`` (pinned batches, side-stream
+         copies) ends with parameters and moments equal to the straight
+         run's bit for bit; a preemption notice while batch 3 is fetched
+         puts the checkpoint at step 4;
+  12. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
      paged expand of phase 10b under ``serve_pages``; phase 5's log gives
      the NSD row's bound by the padded definition too, 9 bytes a padded
      element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e, 4f, 6b, 6c, 7, 8, 9 and 10);
-  12. print the JSON result line last.
+     runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10 and 11);
+  13. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -326,6 +353,13 @@ SSGD_RUNS = (("vgg11-cifar", 4, "ps", 3), ("vgg11-cifar", 4, "ring", 3),
 # a node's backward, variant=kernel (phases 4 and 4e)
 SSGD_PER_NODE = {"vgg11-cifar": PER_STEP, "mlp-mnist": NEW_MODELS["mlp-mnist"]}
 DIST_BASELINE = "benchmarks/baselines/BENCH_distributed_nodes.json"
+# phase 11a: (topology, nodes, pods) on phase 6a's leaves: 4 and 2 nodes a
+# pod, 2 pods of 3 (hier), a power-of-two and a ragged pod count (butterfly)
+TWO_LEVEL_REDUCES = (("hier", 8, 2), ("hier", 6, 3), ("butterfly", 8, 4),
+                     ("butterfly", 6, 3))
+OVERLAP_BUCKET_BYTES = 262144  # the reference's overlap row
+# phase 11c: gemma-2b's smoke preset through the launcher, checkpointed
+LM_RESUME_BATCH, LM_RESUME_SEQ = 4, 64
 
 # phase 7: gemma-2b at full width through the LM launcher (bf16, remat per
 # block, AdamW), 8 sequences of 128 tokens a step
@@ -486,6 +520,72 @@ def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
         log(f"  host {ms:9.4f} ms  x{n:<4d} {key[:80]}")
 
 
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Raise on any operation that synchronises the host with the device
+    (torch's sync debug mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# every telemetry field that phases 6a and 11a hold bit for bit between the
+# kernel and plain routes of a reduce
+REDUCE_TELEMETRY = ("wire_bytes", "dense_bytes", "error_bound", "wire_ici_bytes",
+                    "wire_dcn_bytes", "peak_dcn_bytes")
+
+
+def reduce_both_routes(torch, plain_kernels, red, g, label):
+    """``red.reduce(g)`` on the kernel route (no host sync allowed) and on
+    the plain route: the mean, every pack's levels, bitmap, deltas and nnz,
+    and the telemetry (``REDUCE_TELEMETRY``) bit for bit. Returns the kernel
+    route's telemetry, packs and launches."""
+    from repro_torch.kernels import build
+    from repro_torch.quant import wire
+
+    runs = []
+    for route in ("kernel", "plain"):
+        packs = []
+        real_pack = wire.pack_nsd
+
+        def recording_pack(*a, **kw):
+            packs.append(real_pack(*a, **kw))
+            return packs[-1]
+
+        ctx = plain_kernels() if route == "plain" else no_host_sync(torch)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        wire.pack_nsd = recording_pack
+        try:
+            with ctx:
+                out, tele, _ = red.reduce(g, SEED, 1)
+        finally:
+            wire.pack_nsd = real_pack
+        torch.cuda.synchronize()
+        runs.append((out, tele, packs, dict(build.LAUNCHES)))
+    (out_k, tele_k, packs_k, launches), (out_p, tele_p, packs_p, lp) = runs
+    check(not any(lp.values()), f"{label}: plain route launched {lp}")
+    for name in g:
+        check(torch.equal(out_k[name], out_p[name]),
+              f"{label}: mean of {name} differs between routes")
+    check(len(packs_k) == len(packs_p), f"{label}: pack counts differ")
+    for pk, pp in zip(packs_k, packs_p):
+        for f in ("levels", "bitmap", "deltas", "nnz"):
+            check(torch.equal(getattr(pk, f), getattr(pp, f)),
+                  f"{label}: pack {f} differs between routes")
+    for f in REDUCE_TELEMETRY:
+        check(float(getattr(tele_k, f)) == float(getattr(tele_p, f)),
+              f"{label}: {f} {float(getattr(tele_k, f))} vs "
+              f"{float(getattr(tele_p, f))}")
+    return tele_k, packs_k, launches
+
+
 def phase6(torch, card, dev, plain_kernels, worst_rel):
     """Phase 6: the compressed reduce on both routes (6a), the SSGD step at
     full width on variant=kernel (6b) and the figs. 5/6 rows (6c). Returns
@@ -499,62 +599,7 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
     from repro_torch.kernels import build
     from repro_torch.models.cnn import CNN
     from repro_torch.optim.optimizers import OptConfig, init_opt_state
-    from repro_torch.quant import wire
     from repro_torch.train import distributed_nodes
-
-    def nonzero(launches):
-        return {k: v for k, v in launches.items() if v}
-
-    @contextlib.contextmanager
-    def no_host_sync():
-        """Raise on any operation that synchronises the host with the
-        device (torch's sync debug mode)."""
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    def reduce_both_routes(red, g, label):
-        """``red.reduce(g)`` on the kernel route (no host sync allowed) and
-        on the plain route: the mean, every pack's levels, bitmap, deltas
-        and nnz, and the wire bytes, dense bytes and error bound bit for
-        bit. Returns the kernel route's telemetry, packs and launches."""
-        runs = []
-        for route in ("kernel", "plain"):
-            packs = []
-            real_pack = wire.pack_nsd
-
-            def recording_pack(*a, **kw):
-                packs.append(real_pack(*a, **kw))
-                return packs[-1]
-
-            ctx = plain_kernels() if route == "plain" else no_host_sync()
-            torch.cuda.synchronize()
-            build.reset_launches()
-            wire.pack_nsd = recording_pack
-            try:
-                with ctx:
-                    out, tele, _ = red.reduce(g, SEED, 1)
-            finally:
-                wire.pack_nsd = real_pack
-            torch.cuda.synchronize()
-            runs.append((out, tele, packs, dict(build.LAUNCHES)))
-        (out_k, tele_k, packs_k, launches), (out_p, tele_p, packs_p, lp) = runs
-        check(not any(lp.values()), f"{label}: plain route launched {lp}")
-        for name in g:
-            check(torch.equal(out_k[name], out_p[name]),
-                  f"{label}: mean of {name} differs between routes")
-        check(len(packs_k) == len(packs_p), f"{label}: pack counts differ")
-        for pk, pp in zip(packs_k, packs_p):
-            for f in ("levels", "bitmap", "deltas", "nnz"):
-                check(torch.equal(getattr(pk, f), getattr(pp, f)),
-                      f"{label}: pack {f} differs between routes")
-        for f in ("wire_bytes", "dense_bytes", "error_bound"):
-            check(float(getattr(tele_k, f)) == float(getattr(tele_p, f)),
-                  f"{label}: {f} {float(getattr(tele_k, f))} vs "
-                  f"{float(getattr(tele_p, f))}")
-        return tele_k, packs_k, launches
 
     # -- 6a: fixed node gradients through ps and the ring, kernel route
     # against the plain route: bit for bit, with the launches the code implies
@@ -566,7 +611,8 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
         pol = comm.CommPolicy(s=2.0, topology=topology, overrides=REDUCE_OVERRIDES)
         g = {k: v[:n].contiguous() for k, v in grads.items()}
         tele_k, packs_k, launches = reduce_both_routes(
-            comm.reducer(pol, n_nodes=n), g, f"6a {topology} N={n}")
+            torch, plain_kernels, comm.reducer(pol, n_nodes=n), g,
+            f"6a {topology} N={n}")
         modes = [pol.mode_for(k, v[0].numel()) for k, v in g.items()]
         if topology == "ps":
             packed = n * modes.count("nsd")
@@ -629,7 +675,8 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
             # the reduce of this run's own node gradients (whole VGG11
             # leaves under ps, ~590k-element segments on the ring) on both
             # routes
-            tele_k, packs_k, got = reduce_both_routes(step.reducer, gk, label)
+            tele_k, packs_k, got = reduce_both_routes(torch, plain_kernels, step.reducer, gk,
+                                                    label)
             want = {"nsd_quant": packs, "levels_compact": packs,
                     "levels_expand": packs}
             check(nonzero(got) == want,
@@ -1429,6 +1476,310 @@ def phase10(torch, card, dev, same, time_ms, graph_ms):
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
     return {"serve_bench quick": bench_total,
             **{f"gemma-2b serve {kv} 16 requests": n for kv, n in totals.items()}}, pages
+
+
+def two_level_packs(topology: str, n: int, pods: int) -> int:
+    """Packs (and as many unpacks) of one compressed leaf through the
+    simulated hier or butterfly reduce of n nodes in ``pods`` pods: each
+    pack one NSD and one wire compact launch, each unpack one wire expand."""
+    G, P = pods, n // pods
+    if topology == "hier":
+        # G P (P-1) ring packs, P (G-1) tree packs, P final packs
+        return n * P
+    m = G.bit_length() - 1
+    G2 = 1 << m
+    # the ring's, the pre-fold's, the halving rounds' and the piece packs
+    return G * P * (P - 1) + P * ((G - G2) + m * G2 + G2)
+
+
+def phase11(torch, card, dev, plain_kernels):
+    """Phase 11: the two-level reduces and overlap bucketing on both routes
+    (11a), elastic SSGD on VGG11 at full width through resizes (11b), and
+    gemma-2b's checkpointed launcher run resumed bit for bit (11c). Returns
+    the launches of each path by kernel, for the kernels line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import comm
+    from repro_torch.configs import paper_models
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.data import ShardedLoader
+    from repro_torch.data.synthetic import (ClassifConfig, TokenStreamConfig,
+                                            classification_batch, token_batch)
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.cnn import CNN
+    from repro_torch.obs.bus import get_bus
+    from repro_torch.obs.streams import PHASE
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import ElasticSSGD, list_steps
+    from repro_torch.utils.pytree import flatten_with_names
+
+    path_launches = {}
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t_phase = time.perf_counter()
+
+    # -- 11a: phase 6a's node gradients through the hierarchy and the
+    # butterfly, kernel route against plain route, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    grads = {name: torch.randn((8,) + shape, device=dev, generator=gen) * 1e-2
+             for name, shape in REDUCE_LEAVES.items()}
+    for topology, n, pods in TWO_LEVEL_REDUCES:
+        pol = comm.CommPolicy(s=2.0, topology=topology, pods=pods,
+                              overrides=REDUCE_OVERRIDES)
+        g = {k: v[:n].contiguous() for k, v in grads.items()}
+        label = f"11a {topology} N={n} pods={pods}"
+        tele, packs, launches = reduce_both_routes(
+            torch, plain_kernels, comm.reducer(pol, n_nodes=n), g, label)
+        # int8 and topk_ef leaves travel as nsd on an all-reduce
+        n_comp = sum(pol.mode_for(k, v[0].numel()) != "dense" for k, v in g.items())
+        k = n_comp * two_level_packs(topology, n, pods)
+        want = {"nsd_quant": k, "levels_compact": k, "levels_expand": k}
+        check(nonzero(launches) == want,
+              f"{label}: launches {nonzero(launches)}, want {want}")
+        path_launches[f"reduce {topology} N={n} pods={pods}"] = launches
+        log(f"phase 11a: {topology} N={n} pods={pods}: mean, levels, bitmap, deltas, "
+            f"nnz and telemetry bit-exact between the kernel and plain routes over "
+            f"{len(packs)} packs, the kernel route without a host sync: "
+            + ", ".join(f"{f} {float(getattr(tele, f))}" for f in REDUCE_TELEMETRY)
+            + f", packs_per_segment {tele.packs_per_segment}; launches "
+            f"{nonzero(launches)}")
+    # overlap: VGG11's gradient shapes at 4 nodes in 2 pods, bucketed at
+    # OVERLAP_BUCKET_BYTES, against the blocking reduce (both on the kernel
+    # route), then the bucketed reduce on both routes
+    net = CNN(paper_models.MODELS["vgg11-cifar"](), seed=SEED, device=dev)
+    g = {name: torch.randn((4,) + tuple(p.shape), device=dev, generator=gen) * 1e-2
+         for name, p in net.named_parameters()}
+    del net
+    pol = comm.CommPolicy(s=2.0, topology="hier", pods=2)
+    bucketed = comm.reducer(pol.replace(bucket_bytes=OVERLAP_BUCKET_BYTES), n_nodes=4)
+    build.reset_launches()
+    out_b, tele_b, _ = comm.reducer(pol, n_nodes=4).reduce(g, SEED, 1)
+    blocking_launches = dict(build.LAUNCHES)
+    tele_o, packs_o, launches = reduce_both_routes(
+        torch, plain_kernels, bucketed, g, "11a overlap")
+    out_o, _, _ = bucketed.reduce(g, SEED, 1)
+    for name in g:
+        check(torch.equal(out_o[name], out_b[name]),
+              f"11a overlap: {name} differs from the blocking reduce")
+    # the bucketed telemetry: the error bound is the max of the buckets', the
+    # byte counts add up the same f32 terms bucket by bucket, which rounds
+    # otherwise above 2^24 (VGG11's wire bytes at N=4 are ~3.1e7); the
+    # buckets' peak_dcn_bytes is their max, the blocking reduce's the sum
+    # over its leaves (the reference's accounting)
+    check(float(tele_o.error_bound) == float(tele_b.error_bound),
+          "11a overlap: error_bound differs from the blocking reduce's")
+    for f in ("wire_bytes", "dense_bytes", "wire_ici_bytes", "wire_dcn_bytes"):
+        o, b_ = float(getattr(tele_o, f)), float(getattr(tele_b, f))
+        check(abs(o - b_) <= 1e-6 * b_,
+              f"11a overlap: {f} {o} vs blocking {b_}")
+    check(launches == blocking_launches,
+          f"11a overlap: launches {nonzero(launches)}, blocking {nonzero(blocking_launches)}")
+    plan = bucketed.plan_for(g)
+    path_launches["reduce overlap hier N=4 pods=2 (VGG11 leaves)"] = launches
+    log(f"phase 11a: overlap at bucket_bytes={OVERLAP_BUCKET_BYTES}: {plan.n_buckets} "
+        f"buckets over VGG11's {len(g)} leaves at N=4 hier pods=2 (largest bucket "
+        f"{max(plan.bucket_bytes)} B): every mean bit for bit and error_bound "
+        f"{float(tele_o.error_bound)} equal to the blocking reduce's, wire_bytes "
+        f"{float(tele_o.wire_bytes)} (blocking {float(tele_b.wire_bytes)}), and "
+        f"bit-exact between the kernel and plain routes over {len(packs_o)} packs; "
+        f"launches {nonzero(launches)}")
+    del g, out_b, out_o
+
+    # -- 11b: ElasticSSGD on VGG11 at full width, variant=kernel
+    mcfg = paper_models.MODELS["vgg11-cifar"]()
+    data = ClassifConfig(n_classes=mcfg.n_classes, img_size=mcfg.img_size,
+                         channels=mcfg.in_channels, noise=0.5, seed=SEED)
+    opt_cfg = OptConfig(name="sgd", lr=0.05, momentum=0.9, weight_decay=5e-4,
+                        grad_clip=None)
+    bus = get_bus()
+
+    def snapshot(el):
+        return [(name, x.detach().clone() if isinstance(x, torch.Tensor) else x)
+                for name, x in flatten_with_names(el._ckpt_tree())]
+
+    def same_state(a, b, what):
+        check([n for n, _ in a] == [n for n, _ in b], f"{what}: tree names differ")
+        for (name, x), (_, y) in zip(a, b):
+            ok = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            check(ok, f"{what}: {name} differs after the resize")
+
+    def save_times():
+        """The last save's blocking time (gather + drain) and its writer's
+        time, ms, from the checkpoint's spans on the phase stream."""
+        def last(tag):
+            rows = bus.rows(PHASE.name, tag)
+            return float(rows[-1, 1]) * 1e3 if len(rows) else 0.0
+        return last("ckpt_gather") + last("ckpt_drain"), last("ckpt_write")
+
+    def run_elastic(label, cpol, sizes, steps_at, ctrl=None):
+        el = ElasticSSGD(CNN(mcfg, seed=SEED, device=dev), opt_cfg,
+                         DitherPolicy(variant="kernel"), cpol,
+                         ckpt_dir=os.path.join(scratch, label.replace(" ", "_")),
+                         n_nodes=sizes[0], s_base=2.0, device=dev)
+        el.init()
+        total = {k: 0 for k in build.LAUNCHES}
+        step = 0
+        for i, n in enumerate(sizes):
+            if i:
+                before = snapshot(el)
+                el.resize(n)
+                blocking, writer = save_times()
+                same_state(snapshot(el), before, f"11b {label} -> N={n}")
+                log(f"phase 11b: {label}: resize to N={n}, pods "
+                    f"{el.active_comm_policy.pods}: parameters, moments"
+                    f"{', EF residuals' if el.comm_state else ''}"
+                    f"{', ctrl' if el.ctrl_state else ''} equal to the saved state "
+                    f"bit for bit; the save blocked {blocking:.1f} ms (gather + "
+                    f"drain), its writer took {writer:.1f} ms ({card})")
+            pods = el.active_comm_policy.pods
+            n_comp = sum(cpol.mode_for(k, p.numel()) != "dense"
+                         for k, p in el.params.items())
+            packs = (n_comp * two_level_packs(cpol.topology, n, pods)
+                     if cpol.topology in ("hier", "butterfly") else n * n_comp)
+            if cpol.default == "topk_ef":
+                packs = 0  # top-k keeps its residual server-side: no pack
+            want = nonzero({"nsd_quant": n * PER_STEP["nsd_quant"] + packs,
+                            "bsp_matmul_int8": n * PER_STEP["bsp_matmul_int8"],
+                            "levels_compact": packs, "levels_expand": packs})
+            for _ in range(steps_at[i]):
+                b = classification_batch(data, step, SSGD_NODE_BATCH * n, device=dev)
+                torch.cuda.synchronize()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                m = el.step(b, SEED)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = dict(build.LAUNCHES)
+                for k, v in got.items():
+                    total[k] += v
+                check(math.isfinite(float(m["loss"])), f"11b {label}: loss {m['loss']}")
+                check(nonzero(got) == want,
+                      f"11b {label} N={n} step {step}: launches {nonzero(got)}, want {want}")
+                log(f"phase 11b: {label} N={n} pods={pods} step {step}: {ms:.1f} ms on "
+                    f"the host clock, loss {float(m['loss']):.5f}, launches "
+                    f"{nonzero(got)}, comm_wire_bytes {float(m['comm_wire_bytes'])}"
+                    + (f", ICI {float(m['comm_wire_ici_bytes'])}, DCN "
+                       f"{float(m['comm_wire_dcn_bytes'])}, peak DCN "
+                       f"{float(m['comm_peak_dcn_bytes'])}"
+                       if "comm_wire_ici_bytes" in m else "") + f" ({card})")
+                step += 1
+            if ctrl is not None and i == 0:
+                el.ctrl_state = dict(ctrl)
+        path_launches[f"elastic vgg11 {label}"] = total
+        return el
+
+    hier = comm.CommPolicy(default="nsd", s=2.0, topology="hier", pods=2)
+    el = run_elastic("hier", hier, (8, 6, 3), (2, 1, 1),
+                     ctrl={"c0": np.float32(0.125), "fc2": np.float32(-0.5)})
+    check(el.active_comm_policy.pods == 1, "11b: pods did not snap to 1 at N=3")
+    # the butterfly from the hier run's last checkpoint, one step at N=8
+    ckpt_dir = el.ckpt.base
+    el.save()
+    bfly = ElasticSSGD(CNN(mcfg, seed=SEED + 1, device=dev), opt_cfg,
+                       DitherPolicy(variant="kernel"),
+                       comm.CommPolicy(default="nsd", s=2.0, topology="butterfly",
+                                       pods=4),
+                       ckpt_dir=ckpt_dir, n_nodes=8, s_base=2.0, device=dev)
+    bfly.init()
+    # a fresh driver restores params and opt (ctrl rides only a resize, as
+    # in the reference: a fresh driver's tree has no ctrl subtree)
+    same_state([x for x in snapshot(bfly) if not x[0].startswith("ctrl/")],
+               [x for x in snapshot(el) if not x[0].startswith("ctrl/")],
+               "11b butterfly restore of the hier run")
+    del el
+    n_comp = sum(bfly.comm_policy.mode_for(k, p.numel()) != "dense"
+                 for k, p in bfly.params.items())
+    packs = n_comp * two_level_packs("butterfly", 8, 4)
+    b = classification_batch(data, 10, SSGD_NODE_BATCH * 8, device=dev)
+    build.reset_launches()
+    m = bfly.step(b, SEED)
+    torch.cuda.synchronize()
+    got = dict(build.LAUNCHES)
+    want = {"nsd_quant": 8 * PER_STEP["nsd_quant"] + packs,
+            "bsp_matmul_int8": 8 * PER_STEP["bsp_matmul_int8"],
+            "levels_compact": packs, "levels_expand": packs}
+    check(math.isfinite(float(m["loss"])) and nonzero(got) == want,
+          f"11b butterfly: loss {float(m['loss'])}, launches {nonzero(got)}, want {want}")
+    path_launches["elastic vgg11 butterfly N=8 pods=4"] = got
+    log(f"phase 11b: butterfly N=8 pods=4 from the hier run's checkpoint (step "
+        f"{bfly.opt_state['step'] - 1}): loss {float(m['loss']):.5f}, launches "
+        f"{nonzero(got)}, comm_wire_bytes {float(m['comm_wire_bytes'])}, peak DCN "
+        f"{float(m['comm_peak_dcn_bytes'])} ({card})")
+    del bfly
+    # top-k with error feedback under ps, 4 -> 2 -> 6 nodes
+    topk = comm.CommPolicy(default="topk_ef", topk_frac=0.01)
+    el = run_elastic("topk_ef ps", topk, (4, 2, 6), (1, 1, 1))
+    check(el.comm_state and all(st.residual.any() for st in el.comm_state.values()),
+          "11b topk_ef: no residual came through")
+    del el
+    log(f"phase 11b: {time.perf_counter() - t_phase:.1f} s since phase 11 began ({card})")
+
+    # -- 11c: gemma-2b through the launcher with checkpoints; a trainer
+    # resumed from step 2 on a step-indexed loader against the straight run
+    d_run = os.path.join(scratch, "lm")
+    argv = ["--arch", "gemma-2b", "--preset", "smoke", "--batch", str(LM_RESUME_BATCH),
+            "--seq", str(LM_RESUME_SEQ), "--program", LM_PROGRAM, "--device", str(dev)]
+    argv_ckpt = argv + ["--ckpt-every", "2"]
+    build.reset_launches()
+    straight = lm_train.main(argv_ckpt + ["--steps", "4", "--ckpt-dir", d_run])
+    check(list_steps(d_run) == [2, 4], f"11c: checkpoints {list_steps(d_run)}")
+    log(f"phase 11c: python -m repro_torch.launch.train {' '.join(argv_ckpt)} --steps 4 "
+        f"--ckpt-dir DIR: checkpoints {list_steps(d_run)}, launches "
+        f"{nonzero(build.LAUNCHES)}")
+    d_resume = os.path.join(scratch, "lm_resume")
+    os.makedirs(d_resume)
+    shutil.copytree(os.path.join(d_run, "step_00000002"),
+                    os.path.join(d_resume, "step_00000002"))
+    resumed, _ = lm_train.build(lm_train.parse_args(
+        argv_ckpt + ["--steps", "4", "--ckpt-dir", d_resume]))
+    tcfg = TokenStreamConfig(vocab=resumed.model.cfg.vocab, seq_len=LM_RESUME_SEQ,
+                             batch=LM_RESUME_BATCH)
+    loader = ShardedLoader(lambda s: token_batch(tcfg, s, device="cpu"),
+                           start_step=2, device=dev)
+    build.reset_launches()
+    try:
+        resumed.fit(loader)
+    finally:
+        loader.close()
+    resume_launches = dict(build.LAUNCHES)
+    check(resumed.opt_state["step"] == straight.opt_state["step"] == 4,
+          "11c: the runs did not end at step 4")
+    a = [(n, x) for n, x in flatten_with_names(
+        {"params": straight.params, "opt": straight.opt_state})]
+    b = [(n, x) for n, x in flatten_with_names(
+        {"params": resumed.params, "opt": resumed.opt_state})]
+    check([n for n, _ in a] == [n for n, _ in b], "11c: state names differ")
+    for (name, x), (_, y) in zip(a, b):
+        ok = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        check(ok, f"11c: {name} of the resumed run differs from the straight run's")
+    check(resume_launches["nsd_quant"] > 0 and resume_launches["bsp_matmul_int8"] > 0,
+          f"11c: the resumed kernel steps launched {nonzero(resume_launches)}")
+    path_launches["gemma-2b smoke resumed at step 2 (steps 2-3)"] = resume_launches
+    log(f"phase 11c: a Trainer resumed from step 2 on a ShardedLoader(start_step=2): "
+        f"step-4 parameters and moments equal the straight run's bit for bit over "
+        f"{len(a)} leaves; launches {nonzero(resume_launches)} ({card})")
+    # a preemption notice while batch 3 is fetched: the checkpoint lands at 4
+    d_pre = os.path.join(scratch, "lm_preempt")
+    pre, batches = lm_train.build(lm_train.parse_args(
+        argv + ["--ckpt-every", "100", "--steps", "50", "--ckpt-dir", d_pre]))
+
+    def preempted():
+        for i, batch in enumerate(batches):
+            if i == 3:
+                pre.guard.trigger()
+            yield batch
+
+    pre.fit(preempted())
+    check(pre.ckpt.latest_step() == 4 and pre.opt_state["step"] == 4,
+          f"11c: the preemption checkpoint is at {pre.ckpt.latest_step()}")
+    log(f"phase 11c: guard.trigger() while batch 3 is fetched: the run stops and "
+        f"checkpoints at step {pre.ckpt.latest_step()}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return path_launches
 
 
 def main() -> int:
@@ -2605,7 +2956,13 @@ def main() -> int:
         if row["name"] == "levels_expand":
             row["serve_pages"] = pages
 
-    # -- phases 11 and 12 --------------------------------------------------
+    # -- phase 11: checkpoints, resume and elastic SSGD ------------------
+    ft_launches = phase11(torch, card, dev, plain_kernels)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in ft_launches.items()})
+
+    # -- phases 12 and 13 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,8 +40,9 @@ MODES = (MODE_DENSE, MODE_INT8, MODE_NSD, MODE_TOPK_EF)
 
 # How the data-parallel reduce is organized (``repro_torch.comm.reducer``):
 # "ps" compresses every node's gradient and averages at a server, "ring" runs
-# the compressed ring all-reduce. "hier" and "butterfly" are the reference's
-# two-level reduces, not ported yet: the reducer refuses them.
+# the compressed ring all-reduce, "hier" the two-level reduce (intra-pod
+# ring, inter-pod binomial tree; ``repro_torch.comm.hierarchy``) and
+# "butterfly" its recursive-halving variant (``repro_torch.comm.butterfly``).
 TOPO_PS = "ps"
 TOPO_RING = "ring"
 TOPO_HIER = "hier"
@@ -87,8 +88,13 @@ class CommPolicy:
     overrides: tuple = ()  # ((name_substring, mode), ...), first match wins
     collect_stats: bool = False  # one comm telemetry row per reduce
     topology: str = TOPO_PS
-    # > 0 buckets the reduce for overlap with the backward (the reference's
-    # repro.comm.overlap); not ported: the reducer refuses it
+    pods: int = 1  # node grouping for TOPO_HIER/BUTTERFLY (N = pods*per_pod)
+    # > 0 reduces the gradient leaves in ~bucket_bytes buckets in reverse
+    # layer order (repro_torch.comm.overlap); 0 keeps the one blocking
+    # reduce. Bit-exact either way (pack keys are per leaf). In the port
+    # the buckets run one after another once the backward is done, so the
+    # option overlaps nothing and buys no speed; it changes the accounting
+    # (telemetry per bucket, peak_dcn_bytes the largest bucket's).
     bucket_bytes: int = 0
 
     def __post_init__(self):
@@ -98,6 +104,8 @@ class CommPolicy:
         if self.topology not in TOPOLOGIES:
             raise ValueError(f"unknown comm topology {self.topology!r}; "
                              f"one of {TOPOLOGIES}")
+        if self.pods < 1:
+            raise ValueError(f"pods must be >= 1, got {self.pods}")
         if self.chunk != wire.DEFAULT_CHUNK:
             raise ValueError(f"chunk {self.chunk}: the port's wire has one "
                              f"chunk, {wire.DEFAULT_CHUNK}")

@@ -1,8 +1,9 @@
 """Shared machinery of the compressed reduces: segmenting, hop keys and the
 wire and error accounting.
 
-Counterpart of ``repro.comm.reduce_base`` for the simulated flat ring (the
-port has no hierarchy or shard_map path yet):
+Counterpart of ``repro.comm.reduce_base`` for the simulated reduces (the
+flat ring, the hierarchy and the butterfly; the shard_map paths wait for
+ROADMAP.md section 1, item 7.2):
 
   * segmenting      a flat gradient is zero-padded and split into
                     chunk-aligned segments, one per ring position;
@@ -22,7 +23,7 @@ in the reference's order; nothing here syncs with the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +67,17 @@ def segment(flat: torch.Tensor, n: int, chunk: int
     return padded.reshape(flat.shape[:-1] + (n, seg)), seg
 
 
+def node_mean(nodes) -> torch.Tensor:
+    """The mean over the nodes (a stacked (n, ...) tensor or a list of n
+    tensors) as the reference's ``jnp.mean(g, axis=0)`` rounds it under
+    XLA: the nodes summed in order, times the f32 reciprocal of n.
+    ``Tensor.mean`` sums in another order and divides, a last bit apart."""
+    acc = nodes[0]
+    for g in nodes[1:]:
+        acc = acc + g
+    return acc * (1.0 / len(nodes))
+
+
 def hop_key(key: int, salt: int, *indices: int) -> int:
     """A fresh per-pack stream key: (salt, i0, i1, ...) folded into ``key``."""
     k = fold_in(key, salt)
@@ -75,15 +87,26 @@ def hop_key(key: int, salt: int, *indices: int) -> int:
 
 
 class PackCounter:
-    """Running wire bytes and per-segment Delta sums, f32 on ``device``."""
+    """Running wire bytes per link class (``ici``, the fast intra-pod axis;
+    ``dcn``, the slow inter-pod one) and per-segment Delta sums, f32 on
+    ``device``."""
 
     def __init__(self, n_segments: int, device):
-        self.wire = torch.zeros((), dtype=torch.float32, device=device)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        self.wire = {"ici": zero, "dcn": zero}
         self.bound = torch.zeros((n_segments,), dtype=torch.float32,
                                  device=device)
 
-    def count(self, packed, seg: int, hops: int = 1) -> None:
-        """Record a pack crossing ``hops`` links and charge its Delta
-        (``deltas[0]``) to segment ``seg``'s error bound."""
-        self.wire = self.wire + packed.wire_bytes().to(torch.float32) * hops
-        self.bound[seg] += packed.deltas[0]
+    def count(self, packed, seg: Optional[int] = None, link: str = "ici",
+              hops: int = 1) -> None:
+        """Record a pack crossing ``hops`` links of class ``link``; with
+        ``seg``, charge its Delta (``deltas[0]``) to that segment's error
+        bound (None for a pack forwarded verbatim, charged when made)."""
+        self.wire[link] = (self.wire[link]
+                           + packed.wire_bytes().to(torch.float32) * hops)
+        if seg is not None:
+            self.bound[seg] += packed.deltas[0]
+
+    @property
+    def wire_total(self) -> torch.Tensor:
+        return self.wire["ici"] + self.wire["dcn"]

@@ -107,6 +107,6 @@ def ring_allreduce_nsd(grads: torch.Tensor, key: int, cfg: RingConfig = RingConf
     mean = (total[:size] / n).reshape(shape).to(dtype)
     dense = torch.full((), float(dense_reduce_bytes(size, n)),
                        dtype=torch.float32, device=dev)
-    return mean, ReduceTelemetry(wire_bytes=ctr.wire, dense_bytes=dense,
+    return mean, ReduceTelemetry(wire_bytes=ctr.wire_total, dense_bytes=dense,
                                  error_bound=ctr.bound.max() / n,
                                  n_hops=2 * n * (n - 1), packs_per_segment=n)

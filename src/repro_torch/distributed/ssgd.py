@@ -11,7 +11,8 @@ their gradients are reduced and applied to the one shared model.
 The reduce is one call: :func:`make_ssgd_step` builds a
 ``repro_torch.comm.reducer`` from the optional ``CommPolicy``, and the step
 routes the stacked (n, ...) node gradients through ``Reducer.reduce``
-(``ps`` or ``ring``, per-leaf keys, wire telemetry, error feedback).
+(``ps``, ``ring``, ``hier`` or ``butterfly``, overlap-bucketed with
+``bucket_bytes > 0``; per-leaf keys, wire telemetry, error feedback).
 
 Trace spans ``ssgd/grad``, ``ssgd/reduce`` and ``ssgd/update`` wrap the
 three phases (``repro_torch.obs.annotate``, a
@@ -27,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.comm.compression import TOPO_PS, CommPolicy
+from repro_torch.comm.reduce_base import node_mean
 from repro_torch.comm.reducer import reducer as comm_reducer
 from repro_torch.core.policy import DitherCtx, DitherPolicy, fold_in
 from repro_torch.device import resolve_device
@@ -55,7 +57,8 @@ class SSGDConfig:
 class SSGDStep:
     """One SSGD step: N per-node dithered gradients -> reduce -> update.
 
-        step(opt_state, batch, seed, comm_state=None) -> (metrics, comm_state)
+        step(opt_state, batch, seed, comm_state=None, ctrl=None)
+            -> (metrics, comm_state)
 
     ``batch`` leaves carry a leading (n_nodes, per_node_batch, ...) axis
     (:func:`shard_batch`); ``seed`` is the run's int seed, from which node
@@ -63,9 +66,13 @@ class SSGDStep:
     keys derive. The model's parameters and ``opt_state`` are updated in
     place. ``metrics`` holds 0-d tensors: ``loss`` (the nodes' mean), ``lr``
     and, with a comm policy, ``comm_wire_bytes`` and ``comm_dense_bytes``
-    (plus ``comm_error_bound`` on the ring). ``comm_state`` carries the
+    (plus ``comm_error_bound`` and the ``comm_wire_ici_bytes`` /
+    ``comm_wire_dcn_bytes`` / ``comm_peak_dcn_bytes`` split on the
+    all-reduce topologies). ``comm_state`` carries the
     error-feedback residuals of ``topk_ef`` leaves (the reducer's
-    ``init_state``).
+    ``init_state``). ``ctrl`` is the sparsity controller's ``{layer:
+    log-scale}`` state, handed to every node's ``DitherCtx`` as the
+    reference's step takes it (``ElasticSSGD`` carries it through resizes).
     """
 
     def __init__(self, model: CNN, opt_cfg: OptConfig, dcfg: SSGDConfig,
@@ -93,8 +100,8 @@ class SSGDStep:
         return DitherCtx(self.policy, seed=seed, step=step, worker=worker,
                          device=self.device, memory=self.memory)
 
-    def node_grads(self, batch: Dict[str, torch.Tensor], seed: int, step: int
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def node_grads(self, batch: Dict[str, torch.Tensor], seed: int, step: int,
+                   ctrl=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Every node's loss (n,) and gradients {name: (n, ...)}, averaged
         over the ``grad_accum`` micro-batches of its sub-batch."""
         names, params = zip(*self.model.named_parameters())
@@ -107,8 +114,10 @@ class SSGDStep:
                 if ga > 1:
                     m = nb["labels"].shape[0] // ga
                     nb = {k: v[i * m:(i + 1) * m] for k, v in nb.items()}
-                loss = loss_fn(self.model, nb,
-                               ctx=self.node_ctx(seed, step, w, i))
+                ctx = self.node_ctx(seed, step, w, i)
+                if ctrl is not None:
+                    ctx = dataclasses.replace(ctx, ctrl=ctrl)
+                loss = loss_fn(self.model, nb, ctx=ctx)
                 g = torch.autograd.grad(loss, params)
                 loss = loss.detach()
                 loss_w = loss if loss_w is None else loss_w + loss
@@ -124,10 +133,10 @@ class SSGDStep:
                                      for k, v in grads.items()}
 
     def __call__(self, opt_state: Dict, batch: Dict[str, torch.Tensor],
-                 seed: int, comm_state=None):
+                 seed: int, comm_state=None, ctrl=None):
         step = opt_state["step"]
         with annotate("ssgd/grad"):
-            losses, grads = self.node_grads(batch, seed, step)
+            losses, grads = self.node_grads(batch, seed, step, ctrl)
         metrics = {}
         if self.reducer is not None:
             with annotate("ssgd/reduce"):
@@ -136,10 +145,13 @@ class SSGDStep:
             metrics = {"comm_wire_bytes": tele.wire_bytes,
                        "comm_dense_bytes": tele.dense_bytes}
             if self.reducer.topology != TOPO_PS:
-                metrics["comm_error_bound"] = tele.error_bound
+                metrics.update(comm_error_bound=tele.error_bound,
+                               comm_wire_ici_bytes=tele.wire_ici_bytes,
+                               comm_wire_dcn_bytes=tele.wire_dcn_bytes,
+                               comm_peak_dcn_bytes=tele.peak_dcn_bytes)
         else:
             # no wire: the plain server-side average of the node gradients
-            grads = {k: g.mean(0) for k, g in grads.items()}
+            grads = {k: node_mean(g) for k, g in grads.items()}
         with annotate("ssgd/update"):
             params = dict(self.model.named_parameters())
             for name, p in params.items():
@@ -160,8 +172,8 @@ def make_ssgd_step(model: CNN, opt_cfg: OptConfig, dcfg: SSGDConfig,
     ``s = dcfg.s_for_n()``.
 
     With ``comm_policy`` the node gradients cross the wire through the
-    reducer it selects (``ps`` or ``ring``; a one-node ring runs as
-    ``ps``). ``grad_accum`` > 1 accumulates that many micro-batches per node
+    reducer it selects (``ps``, ``ring``, ``hier`` or ``butterfly``; a
+    one-node all-reduce runs as ``ps``). ``grad_accum`` > 1 accumulates that many micro-batches per node
     before the reduce, each with its own dither stream, so gradients are
     packed once per step. ``memory`` (a ``MemoryPolicy`` or its spec
     string) selects every node's residual codecs.

@@ -19,12 +19,18 @@ section holds each layer's sparsity at its target. ``--run-dir DIR``
 records the run (the dither, memory, phase, train and monitor streams and a
 manifest) into DIR, rendered by ``python -m repro_torch.obs.report DIR``;
 ``--escalate-monitors`` makes a critical health event (a non-finite loss)
-raise. Runs on CUDA unless ``--device cpu``; logs the loss every
-``max(steps // 10, 1)`` steps to stderr.
+raise. ``--ckpt-dir DIR --ckpt-every K`` checkpoints the run every K
+steps into DIR (``repro_torch.train.CheckpointManager``) and resumes from
+DIR's latest checkpoint when there is one. As in the reference, the batch
+counter of a resumed run starts again at 0: a run resumed at step 2 trains
+step 2 on batch 0, not on batch 2 (a step-indexed loader, such as
+``repro_torch.data.ShardedLoader(start_step=...)`` driving a ``Trainer``,
+resumes on the step's own batch). Runs on CUDA unless ``--device cpu``;
+logs the loss every ``max(steps // 10, 1)`` steps to stderr.
 
-Not ported yet (ROADMAP.md section 1): the flags ``--ckpt-dir``,
-``--ckpt-every`` (checkpoints, item 5) and ``--distributed`` (item 7), and
-the ``comm:`` section and ``quant: wire=`` (item 7.5), which raise.
+Not ported yet (ROADMAP.md section 1): the flag ``--distributed`` (item
+7.2), and the ``comm:`` section and ``quant: wire=`` (item 7.5), which
+raise.
 """
 from __future__ import annotations
 
@@ -78,6 +84,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="DEPRECATED: use --program \"memory: ...\"")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--run-dir", default="",
                     help="observability run directory: drains the metrics "
                     "bus (dither/comm/memory/phase/train/monitor streams) "
@@ -142,13 +150,14 @@ def build(args: argparse.Namespace):
                   mu_codec=qo.mu if qo is not None else None,
                   nu_codec=qo.nu if qo is not None else None),
         TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
-                      log_every=max(args.steps // 10, 1)),
+                      log_every=max(args.steps // 10, 1),
+                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
         policy=policy, memory_policy=memory_program or None, device=device,
         obs=obs)
     fn = batch_fn_for(model, args.batch, args.seq, device)
 
     def batches() -> Iterator:
-        step = 0
+        step = 0  # 0 on a resume too, as the reference's counter
         while True:
             yield fn(step)
             step += 1

@@ -22,9 +22,21 @@ each step's context, a tick after each step. With ``obs`` (a
 metrics as host floats (the one host sync a step that obs adds; without obs
 the loop adds none), and ``fit`` ends with ``obs.finish()``.
 
-Not ported yet (ROADMAP.md section 1, items 5 and 7): checkpoints and the
-preemption guard (the controller's state then joins the checkpoint tree),
-and the gradient comm reducer.
+Checkpoints: with ``ckpt_every`` and ``ckpt_dir`` set, ``fit`` saves the
+tree ``params``, ``opt`` and (with a controller) ``ctrl``, under the
+reference's key names, every ``ckpt_every`` steps through a
+``repro_torch.train.CheckpointManager`` (async, keeping the newest
+three), and waits for the last write before it returns.
+:meth:`Trainer.restore_or_init` draws the parameters and resumes from the
+latest checkpoint in place; the controller's subtree is restored once its
+layer names are found on the first batch (``_init_ctrl_state``), and a
+checkpoint without one leaves the scales at their start values. When
+``guard`` (a ``PreemptionGuard``, not installed on SIGTERM: the launcher
+decides) has been triggered, the loop checkpoints at the next step boundary
+and stops. With ``obs`` the saves run under the span ``checkpoint``.
+
+Not ported yet (ROADMAP.md section 1, item 7.5): the gradient comm reducer
+(its error-feedback residuals would join the tree as ``comm``).
 """
 from __future__ import annotations
 
@@ -43,6 +55,8 @@ from repro_torch.memory.policy import MemoryPolicy, as_memory_policy
 from repro_torch.models.api import Model
 from repro_torch.obs.trace import annotate
 from repro_torch.optim.optimizers import OptConfig, apply_updates, init_opt_state
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.fault_tolerance import PreemptionGuard
 from repro_torch.utils import get_logger
 
 log = get_logger("repro_torch.trainer")
@@ -54,6 +68,8 @@ class TrainerConfig:
     total_steps: int = 100
     grad_accum: int = 1
     log_every: int = 10
+    ckpt_every: int = 0  # 0 = off
+    ckpt_dir: str = ""
     seed: int = 0
 
 
@@ -78,6 +94,9 @@ class Trainer:
         # the sparsity controller's host protocol (no-ops without one)
         self._ctrl = ControllerDriver(self.program)
         self.obs = obs
+        self.guard = PreemptionGuard(install=False)
+        self.ckpt = (CheckpointManager(tcfg.ckpt_dir)
+                     if tcfg.ckpt_every and tcfg.ckpt_dir else None)
         self.history: list = []
         self.net: Optional[nn.Module] = None
         self.params: Dict[str, torch.Tensor] = {}
@@ -106,7 +125,39 @@ class Trainer:
         names = self._ctrl.ensure_init(
             lambda net, b, ctx: self.model.loss(net, b, ctx=ctx), self.net,
             batch, device=self.device)
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            # the main restore ran before the layer names existed
+            try:
+                self._ctrl.state = self.ckpt.restore(
+                    {"ctrl": self._ctrl.state})["ctrl"]
+                log.info("restored controller state")
+            except KeyError:
+                pass  # the checkpoint predates the controller
         log.info("sparsity controller: %d layers under control", len(names))
+
+    def _ckpt_tree(self) -> Dict[str, Any]:
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self._ctrl.state:
+            tree["ctrl"] = self._ctrl.state
+        return tree
+
+    def _save(self, step: int, sp) -> None:
+        with sp("checkpoint"):
+            self.ckpt.save(step, self._ckpt_tree())
+
+    def restore_or_init(self) -> Tuple[nn.Module, Dict[str, Any]]:
+        """Fresh parameters and optimizer state, overwritten in place by
+        the latest checkpoint's when there is one (the controller's state
+        waits for ``_init_ctrl_state``)."""
+        self.net = self.init_params()
+        self.params = dict(self.net.named_parameters())
+        self.opt_state = init_opt_state(self.params, self.opt_cfg)
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            state = self.ckpt.restore(
+                {"params": self.params, "opt": self.opt_state}, inplace=True)
+            self.opt_state = state["opt"]
+            log.info("restored checkpoint at step %d", self.opt_state["step"])
+        return self.net, self.opt_state
 
     def _micro_loss(self, batch, ctx: Optional[DitherCtx], i: int):
         c = ctx.with_key(fold_in(ctx.key, i)) if ctx is not None else None
@@ -152,13 +203,17 @@ class Trainer:
     def fit(self, batch_iter: Iterator, params: Optional[nn.Module] = None,
             opt_state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Train from ``opt_state["step"]`` (0 for a new state) to
-        ``total_steps``; ``params`` and ``opt_state`` default to a fresh
-        draw and state. Returns the parameters, the state and the loss
-        history (a row ``{"step", "loss"}`` every ``log_every`` steps)."""
-        self.net = params if params is not None else self.init_params()
-        self.params = dict(self.net.named_parameters())
-        self.opt_state = (opt_state if opt_state is not None
-                          else init_opt_state(self.params, self.opt_cfg))
+        ``total_steps``; without ``params`` the parameters and state come
+        from :meth:`restore_or_init`. Returns the parameters, the state and
+        the loss history (a row ``{"step", "loss"}`` every ``log_every``
+        steps)."""
+        if params is None:
+            self.restore_or_init()
+        else:
+            self.net = params
+            self.params = dict(self.net.named_parameters())
+            self.opt_state = (opt_state if opt_state is not None
+                              else init_opt_state(self.params, self.opt_cfg))
         obs = self.obs
         if obs is not None:
             sp = obs.span
@@ -169,6 +224,12 @@ class Trainer:
         for step in range(self.opt_state["step"], self.tcfg.total_steps):
             if obs is not None:
                 obs.set_step(step)
+            if self.guard.should_stop:
+                log.info("preemption: checkpointing at step %d and stopping",
+                         step)
+                if self.ckpt is not None:
+                    self._save(step, sp)
+                break
             with sp("data"):
                 batch = next(batch_iter)
                 if isinstance(batch, tuple):  # (step, batch) loaders
@@ -188,6 +249,10 @@ class Trainer:
                 self.history.append({"step": step + 1, "loss": loss})
                 log.info("step %d loss %.4f (%.2f s)", step + 1, loss,
                          time.time() - t0)
+            if self.ckpt is not None and (step + 1) % self.tcfg.ckpt_every == 0:
+                self._save(step + 1, sp)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         if obs is not None:
             obs.finish()
         return {"params": self.net, "opt_state": self.opt_state,

@@ -317,7 +317,7 @@ def test_ps_reducer_equals_direct_calls(n):
             gh, b, _ = comm.compress_leaf(gn[w], fold_in(k0, w), mode, pol)
             hats.append(gh)
             wire_bytes += float(b)
-        assert torch.equal(out[name], torch.stack(hats).mean(0)), name
+        assert torch.equal(out[name], reduce_base.node_mean(hats)), name
     assert float(tele.wire_bytes) == wire_bytes
     assert float(tele.dense_bytes) == dense_bytes
     assert (tele.n_hops, tele.packs_per_segment) == (n, 1)
@@ -337,7 +337,7 @@ def test_ring_reducer_equals_direct_calls(n):
             db = ring.dense_reduce_bytes(gn[0].numel(), n)
             wire_bytes += db
             dense_bytes += db
-            assert torch.equal(out[name], gn.mean(0))
+            assert torch.equal(out[name], reduce_base.node_mean(gn))
             continue
         m, t = comm.ring_allreduce_nsd(
             gn, fold_in(fold_in(9, 2), name_salt(name)), comm.RingConfig(s=S))
@@ -379,14 +379,30 @@ def test_topk_ef_state_threads_through_the_ps_reducer():
     assert float(tele.wire_bytes) == n * (8 * 60 + 4)
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(topology="hier"), NotImplementedError),
-    (dict(topology="butterfly"), NotImplementedError),
-    (dict(bucket_bytes=1 << 20), NotImplementedError),
-])
-def test_reducer_refuses_what_is_not_ported(kw, exc):
-    with pytest.raises(exc, match="ROADMAP"):
-        comm.reducer(comm.CommPolicy(**kw), n_nodes=4)
+@pytest.mark.parametrize("kw", [dict(topology="hier", pods=2),
+                                dict(topology="butterfly", pods=2),
+                                dict(bucket_bytes=1 << 10)])
+def test_reducer_refuses_what_is_not_ported(kw, ref_delta):
+    """The three policies this test once saw refused are ported now: each
+    reducer is built, and its reduce equals the reference reducer's under
+    the same policy, given its draws."""
+    n, step, jkey = 4, 1, jax.random.PRNGKey(5)
+    g = _stacked(n, seed=11)
+    red = comm.reducer(comm.CommPolicy(s=S, **kw), n_nodes=n)
+    jred = j_reducer(jcomp.CommPolicy(s=S, **kw), n_nodes=n, stacked=True)
+    getattr(red, "base", red).pack_noise = _FedReducer(jkey)
+    mt, tt, _ = red.reduce({k: torch.from_numpy(v) for k, v in g.items()}, 0,
+                           step)
+    mj, tj, _ = jred.reduce({k: jnp.asarray(v) for k, v in g.items()}, jkey,
+                            step)
+    assert list(mt) == sorted(SHAPES)
+    for name in SHAPES:
+        np.testing.assert_array_equal(mt[name].numpy(), np.asarray(mj[name]),
+                                      err_msg=name)
+    for f in ("wire_bytes", "dense_bytes", "error_bound", "wire_ici_bytes",
+              "wire_dcn_bytes", "peak_dcn_bytes", "n_hops",
+              "packs_per_segment", "pods", "per_pod", "n_buckets"):
+        assert float(getattr(tt, f)) == float(getattr(tj, f)), f
 
 
 @pytest.mark.parametrize("kw", [dict(topology="mesh"), dict(default="int3"),

@@ -739,3 +739,31 @@ def test_nsd_pages_serve_on_the_kernels(cuda):
             assert torch.equal(
                 levels.levels_expand_pages(pool.levels, pool.bitmap, ids),
                 levels.levels_expand_pages_plain(pool.levels, pool.bitmap, ids))
+
+
+def test_loader_copies_pinned_batches_on_a_side_stream(cuda):
+    """ShardedLoader on the card: each host batch is pinned, copied on the
+    loader's stream, and handed over after the consumer's stream waits on
+    the copy's event; the values are the host batch's."""
+    from repro_torch.data import ShardedLoader
+
+    def host(step):
+        g = torch.Generator().manual_seed(step)
+        return {"x": torch.randn(256, 1024, generator=g),
+                "i": torch.arange(step, step + 8)}
+
+    loader = ShardedLoader(host, prefetch=2, start_step=3, device=cuda)
+    try:
+        for want in (3, 4, 5, 6):
+            step, batch = next(loader)
+            assert step == want
+            assert loader._stream != torch.cuda.current_stream(cuda)
+            for k, v in host(step).items():
+                assert batch[k].device.type == "cuda"
+                assert torch.equal(batch[k].cpu(), v), k
+            # consume on the current stream and drop the batch: its memory
+            # goes back to the allocator only after this use
+            (batch["x"] * 2).sum().item()
+    finally:
+        loader.close()
+    assert not loader._thread.is_alive()

@@ -275,25 +275,35 @@ def test_bench_rows_carry_the_reference_keys():
     res, rows, topo = distributed_nodes.bench(steps=2, device="cpu")
     base = _baseline().by_name()
     assert [r.name for r in res] == ["fig5-6/N=1", "fig5-6/N=2", "fig5-6/N=4",
-                                     "topology/ring/N=8"]
+                                     "topology/ring/N=8", "topology/hier/N=8",
+                                     "topology/butterfly/N=8",
+                                     "butterfly/vs-tree/N=8"]
     for r in res:
         assert set(r.derived) == set(base[r.name].derived) - PRICING, r.name
         assert r.gates == base[r.name].gates, r.name
+        assert r.context == base[r.name].context, r.name
     assert [row["n_nodes"] for row in rows] == [1, 2, 4]
     for row in rows:
         assert 0 < row["wire_ratio"] < 1 and row["max_bits"] <= 8
-    ring = topo["rows"][0]
+    ring, hier, bfly = topo["rows"]
     assert ring["packs_per_segment"] == 8
-    assert ring["max_err"] <= ring["error_bound"]
     assert ring["dense_bytes"] == 2 * 8 * 7 * 2048 * 4
+    for row in (ring, hier, bfly):
+        assert row["max_err"] <= row["error_bound"]
+    for row in (hier, bfly):  # (P - 1) + ceil(log2 G) + 1 at 4 nodes a pod
+        assert row["packs_per_segment"] == 3 + 1 + 1
+        assert row["wire_ici_bytes"] + row["wire_dcn_bytes"] == \
+            row["wire_bytes"]
+    vs = topo["butterfly"]
+    assert (vs["maxdiff_g1"], vs["packs_diff"], vs["peak_excess"]) == (0, 0, 0)
+    assert 0 < vs["peak_ratio"] < 1
 
 
 def test_check_gates_the_ported_rows_and_names_the_rest():
     baseline = _baseline()
     names = [n for n, _ in distributed_nodes.not_ported(baseline)]
-    assert names == ["topology/hier/N=8", "topology/butterfly/N=8",
-                     "butterfly/vs-tree/N=8", "overlap/hier-bucketed/N=4"]
-    assert all("ROADMAP.md" in item
+    assert names == ["overlap/hier-bucketed/N=4"]
+    assert all("ROADMAP.md" in item and "item 9" in item
                for _, item in distributed_nodes.not_ported(baseline))
     ported = [r for r in baseline.results if r.name not in names]
 
@@ -312,7 +322,12 @@ def test_check_gates_the_ported_rows_and_names_the_rest():
     gated = {(f.bench, f.metric) for f in report.findings if f.status == "ok"}
     assert ("fig5-6/N=4", "wire_ratio") in gated
     assert ("topology/ring/N=8", "packs_per_segment") in gated
-    assert len(gated) == 3 * 4 + 3
+    for name in ("topology/hier/N=8", "topology/butterfly/N=8"):
+        for metric in ("error_bound", "packs_per_segment", "wire_kb"):
+            assert (name, metric) in gated
+    for metric in ("maxdiff_g1", "packs_diff", "peak_excess", "error_bound"):
+        assert ("butterfly/vs-tree/N=8", metric) in gated
+    assert len(gated) == 3 * 4 + 3 * 3 + 4
     assert not distributed_nodes.check(current(("wire_ratio", 1.2)),
                                        baseline).ok
     assert not distributed_nodes.check(current()[:-1], baseline).ok  # missing
