@@ -255,14 +255,55 @@ Phases (any failure exits non-zero and prints no result):
          copies) ends with parameters and moments equal to the straight
          run's bit for bit; a preemption notice while batch 3 is fetched
          puts the checkpoint at step 4;
-  12. print one JSON line naming the seven kernels (the NSD row carries its
+  12. the rest of the LM zoo's dense and MoE families, batch 8 x seq 128
+     zipf tokens, bf16, remat, AdamW, the program ``phase@0=off;
+     phase@1=kernel;rule lm_head:off`` (an untied head of vocab > 133,144
+     or gemma3's tied 262,144 would overflow the int8 product's int32 sum):
+     12a. gemma3-4b at full width and depth through the launcher
+         (``--preset full``, 4 steps; 34 blocks, 29 of them local with
+         window 1024): finite losses, per kernel step 238 NSD and 476 int8
+         launches, every int8 product's K <= 133,144, no fallback; host ms
+         a step, peak device memory, a profile of one kernel step;
+     12b. its first kernel step's gradients against the plain versions
+         (relative L2 <= 1e-5 per parameter; 0 expected) and its dither
+         sparsity within 8 points;
+     12c. moonshot-v1-16b-a3b at full width, depth cut 48 -> 4, 3 steps
+         through ``repro_torch.train.Trainer``: a kernel step launches per
+         block 11 NSD (attention 4, router 1, shared experts 3, the three
+         expert einsums one each), 192 packs (one per expert slice of each
+         expert einsum) and 400 int8 products; a captured slice's pack of
+         each shape (128 x 1,408 and 128 x 2,048) bit for bit against its
+         plain version and timed; the 128 x 128 tiles the expert slices
+         skip, counted; a profile of one kernel step; 12b's gradient check
+         on the first kernel step;
+     12d. qwen2.5-32b and minitron-8b at full width cut to 2 blocks, 2
+         steps each; dbrx-132b at full width cut to 1 block (4.5 B
+         parameters) under ``quant: mu=m8;nu=u8`` (its f32 moments, ~72 GB
+         of state, do not fit), 2 steps: per kernel step 8 NSD, 48 packs
+         and 106 int8 products (C = 320 padded to 384 rows, K up to
+         10,752), a captured slice's pack of each shape (384 x 10,752 and
+         384 x 6,144) bit for bit and timed, 12b's gradient check; and
+         dbrx-132b's smoke preset through the launcher: finite losses, the
+         launches the blocks imply, no fallback;
+     12e. serving: gemma3-4b at full width through the serve launcher on
+         dense buffers (8 requests of 4 + 16 tokens, tokens a second and
+         the median tick); gemma3's smoke model in the engine with prompts
+         past its window of 8 (the ring wraps), its tokens equal to
+         ``greedy_generate``'s; moonshot's smoke model in the engine at
+         batch 1, chunk 1, its tokens equal to a token-by-token decode
+         from an empty cache; the five archs' smoke presets through the
+         serve launcher;
+  13. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
-     paged expand of phase 10b under ``serve_pages``; phase 5's log gives
-     the NSD row's bound by the padded definition too, 9 bytes a padded
-     element; every row's ``launches_by_path`` gives its launches in the
-     runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10 and 11);
-  13. print the JSON result line last.
+     paged expand of phase 10b under ``serve_pages``, the pack row its
+     times at the expert-slice shapes of phases 12c and 12d under
+     ``moe_expert_slice``, by arch;
+     phase 5's log gives the NSD row's bound by the padded definition too,
+     9 bytes a padded element; every row's ``launches_by_path`` gives its
+     launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11 and
+     12);
+  14. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -417,6 +458,49 @@ SERVE_REQUESTS, SERVE_NEW = 16, 16
 # launch each), and each layer's pool starts as one encoded zero page
 SERVE_EXPAND_PER_STEP = 2 * LM_BLOCKS
 SERVE_ENCODES_PER_SEAL = 2 * LM_BLOCKS
+
+# phase 12: the rest of the LM zoo at batch 8 x seq 128, the kernel program
+# from step 1 (lm_head off: its K would overflow the int32 sum)
+ZOO_PROGRAM = "dither: phase@0=off;phase@1=kernel;rule lm_head:off"
+ZOO_FIRST_KERNEL_STEP = 1
+ZOO_BATCH, ZOO_SEQ = 8, 128
+GEMMA3_ARGS = ["--arch", "gemma3-4b", "--preset", "full", "--batch", "8",
+               "--seq", "128"]
+GEMMA3_STEPS = 4
+GEMMA3_PARAMS = 3_879_907_840
+# (arch, blocks kept of the full depth, steps, the program's quant:
+# section): AdamW's state of the full depth exceeds the card's 80 GB.
+# dbrx's one block holds 4.5 B parameters: its f32 moments (~72 GB of state)
+# do not fit, its 8-bit ones (~45 GB) do
+ZOO_CUTS = (("moonshot-v1-16b-a3b", 4, 3, ""), ("qwen2.5-32b", 2, 2, ""),
+            ("minitron-8b", 2, 2, ""),
+            ("dbrx-132b", 1, 2, "quant: mu=m8;nu=u8"))
+ZOO_SMOKE_TRAIN = "dbrx-132b"  # its smoke preset through the launcher too
+ZOO_SERVE_SPEC = "worker gemma3-4b: batch=8;max_len=128;chunk=8"
+ZOO_SERVE_REQUESTS, ZOO_SERVE_NEW = 8, 16
+ZOO_ARCHS = ("gemma3-4b", "qwen2.5-32b", "minitron-8b", "moonshot-v1-16b-a3b",
+             "dbrx-132b")
+
+
+def zoo_kernel_step(cfg) -> dict:
+    """The launches of one kernel step (lm_head off) of an LM config: per
+    block one NSD per dithered dense (attention 4; an MLP's 3 gated or 2;
+    an MoE block's router and shared experts) and per expert einsum (3),
+    one pack per expert slice of each expert einsum, and two int8
+    products per dense and per expert slice (every input needs dx)."""
+    if cfg.moe is None:
+        dense = 4 + (3 if cfg.act in ("swiglu", "geglu") else 2)
+        einsums = slices = 0
+    else:
+        dense = 4 + 1 + (3 if cfg.moe.n_shared else 0)
+        einsums, slices = 3, 3 * cfg.moe.n_experts
+    n = cfg.n_layers
+    out = {"nsd_quant": n * (dense + einsums),
+           "bsp_matmul_int8": 2 * n * (dense + slices)}
+    if slices:
+        out["bitmap_pack"] = n * slices
+    return out
+
 
 KERNELS = {
     "nsd_quant": ("src/repro_torch/kernels/csrc/nsd_quant.cu",
@@ -1782,6 +1866,375 @@ def phase11(torch, card, dev, plain_kernels):
     return path_launches
 
 
+def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
+            same, time_ms, graph_ms):
+    """Phase 12: the rest of the LM zoo. 12a gemma3-4b at full width and
+    depth through the launcher, 12b its first kernel step's gradients
+    against the plain versions, 12c moonshot-v1-16b-a3b cut to 4 blocks
+    (the pack kernel on the MoE path), 12d qwen2.5-32b and minitron-8b cut
+    to 2 blocks and dbrx-132b's smoke preset, 12e serving. Returns the
+    launches of each run by kernel, for the kernels line, and the pack's
+    figures at the expert-slice shape."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_model, get_smoke_model
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.program import merge_legacy_flags
+    from repro_torch.models.api import lm_model
+    from repro_torch.obs import metrics
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.serve import Engine, Request, ServeConfig, greedy_generate
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    steps_seen, ks = [], []
+
+    def n_blocks(n):
+        return f"{n} block{'s' if n != 1 else ''}"
+    packs = {"tiles": 0, "skipped": [], "slices": {}}
+    real_step = trainer_mod.Trainer.train_step
+
+    def timed_step(self, batch, step):
+        """One step on the host clock, with its launches."""
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = real_step(self, batch, step)
+        torch.cuda.synchronize()
+        steps_seen.append((step, (time.perf_counter() - t0) * 1e3,
+                           float(out["loss"]),
+                           {k: v - before[k] for k, v in build.LAUNCHES.items()
+                            if v != before[k]}))
+        return out
+
+    def recording_int8(a, b, scale, mask, *, trans_a=False, trans_b=False):
+        ks.append(a.shape[0] if trans_a else a.shape[1])
+        return kernel["bsp_matmul_int8"](a, b, scale, mask, trans_a=trans_a,
+                                         trans_b=trans_b)
+
+    def recording_pack(k, **kw):
+        out = kernel["bitmap_pack"](k, **kw)
+        if tuple(k.shape) not in packs["slices"]:  # the first of each shape
+            packs["slices"][tuple(k.shape)] = (k.clone(), kw)
+        packs["tiles"] += out[2].numel()
+        packs["skipped"].append((out[2] == 0).sum())  # summed after the run
+        return out
+
+    def run(label, fn, n_params=None):
+        """fn() -> a trainer, with every step timed and its launches, the
+        int8 products' K and the packs' masks recorded; checks no fallback,
+        finite losses and the K bound. Returns (trainer, launches over the
+        run, peak device memory above what was held before)."""
+        steps_seen.clear()
+        ks.clear()
+        packs.update(tiles=0, skipped=[], slices={})
+        ops.KERNEL_FALLBACKS.clear()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer_mod.Trainer.train_step = timed_step
+        try:
+            with swapped({"bsp_matmul_int8": recording_int8,
+                          "bitmap_pack": recording_pack}):
+                trainer = fn()
+        finally:
+            trainer_mod.Trainer.train_step = real_step
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        total = dict(build.LAUNCHES)
+        check(not ops.KERNEL_FALLBACKS, f"{label}: fallbacks {ops.KERNEL_FALLBACKS}")
+        got_params = sum(p.numel() for p in trainer.net.parameters())
+        if n_params is not None:
+            check(got_params == n_params, f"{label}: {got_params} parameters")
+        want_step = zoo_kernel_step(trainer.model.cfg)
+        for step, ms, loss, launched in steps_seen:
+            check(math.isfinite(loss), f"{label} step {step}: loss {loss}")
+            want = want_step if step >= ZOO_FIRST_KERNEL_STEP else {}
+            check(launched == want, f"{label} step {step}: launches {launched}, "
+                                    f"want {want}")
+            log(f"phase {label} step {step}: {ms:.3f} ms on the host clock, "
+                f"loss {loss:.4f}, launches {launched}")
+        check(max(ks, default=0) <= INT32_EXACT_K,
+              f"{label}: an int8 product of K {max(ks, default=0)} > {INT32_EXACT_K}")
+        cfg = trainer.model.cfg
+        log(f"phase {label}: {cfg.name} {n_blocks(cfg.n_layers)}, {got_params} "
+            f"parameters ({str(cfg.dtype).split('.')[-1]}"
+            f"{', remat' if cfg.remat else ''}), {seconds:.1f} s for "
+            f"{len(steps_seen)} steps with the model's build; int8 products' K "
+            f"{sorted(set(ks))} (exact up to {INT32_EXACT_K}); no fallback; peak "
+            f"device memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+            f"GiB held before ({card})")
+        return trainer, total, peak
+
+    def step_grads(trainer, batch, step):
+        """Step ``step``'s loss, gradients (cloned) and dither sparsity, the
+        program's base with stats on."""
+        metrics.reset()
+        for p in trainer.net.parameters():
+            p.grad = None
+        loss, _ = trainer.grads(batch, step)
+        grads = {n: p.grad.clone() for n, p in trainer.net.named_parameters()}
+        for p in trainer.net.parameters():
+            p.grad = None
+        return float(loss), grads, metrics.overall_sparsity() * 100
+
+    def grad_check(trainer, label):
+        """The first kernel step's gradients on the kernels and on their
+        plain versions (AdamW's state freed first: only the gradients are
+        needed)."""
+        trainer.opt_state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        prog = trainer.program
+        trainer.program = prog.replace(base=prog.base.replace(collect_stats=True))
+        tcfg = TokenStreamConfig(vocab=trainer.model.cfg.vocab, seq_len=ZOO_SEQ,
+                                 batch=ZOO_BATCH)
+        batch = token_batch(tcfg, ZOO_FIRST_KERNEL_STEP, device=dev)
+        build.reset_launches()
+        loss_k, grads_k, sp_k = step_grads(trainer, batch, ZOO_FIRST_KERNEL_STEP)
+        launched = nonzero(build.LAUNCHES)
+        want = zoo_kernel_step(trainer.model.cfg)
+        check(launched == want, f"{label}: launches {launched}, want {want}")
+        t0 = time.perf_counter()
+        with plain_kernels():
+            build.reset_launches()
+            loss_p, grads_p, sp_p = step_grads(trainer, batch, ZOO_FIRST_KERNEL_STEP)
+            check(not any(build.LAUNCHES.values()),
+                  f"{label}: the plain run launched a kernel")
+        plain_s = time.perf_counter() - t0
+        worst = worst_rel(grads_k, grads_p, f"{label} {trainer.model.cfg.name}")
+        check(abs(sp_k - sp_p) <= SPARSITY_BAND,
+              f"{label}: sparsity {sp_k} vs plain {sp_p}")
+        log(f"phase {label}: {trainer.model.cfg.name} step "
+            f"{ZOO_FIRST_KERNEL_STEP} loss {loss_k:.6f} (plain {loss_p:.6f}); worst "
+            f"relative L2 gradient difference kernel vs plain {worst} over "
+            f"{len(grads_k)} parameters; dither sparsity {sp_k:.3f}% (plain "
+            f"{sp_p:.3f}%); the plain step {plain_s:.1f} s")
+
+    def release(*objs):
+        del objs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    base = DitherPolicy(variant="paper", s=2.0)  # the launcher's defaults
+
+    def cut_trainer(arch, blocks, steps, quant):
+        """The arch's full configuration cut to ``blocks`` blocks, trained by
+        ``repro_torch.train.Trainer`` as the launcher builds it (the
+        ``quant:`` section's moment codecs into ``OptConfig``)."""
+        full = get_model(arch)
+        model = lm_model(dataclasses.replace(full.cfg, n_layers=blocks),
+                         full.family)
+        spec = merge_legacy_flags(f"{ZOO_PROGRAM} {quant}", "", "")
+        qo = spec.quant_overrides()
+        policy = spec.dither_program(base)
+        trainer = trainer_mod.Trainer(
+            model, OptConfig(name="adamw", lr=3e-4, schedule="cosine",
+                             warmup_steps=max(steps // 20, 1), total_steps=steps,
+                             mu_codec=qo.mu if qo is not None else None,
+                             nu_codec=qo.nu if qo is not None else None),
+            trainer_mod.TrainerConfig(total_steps=steps, log_every=1),
+            policy=policy, device=dev)
+        fn = lm_train.batch_fn_for(model, ZOO_BATCH, ZOO_SEQ, dev)
+        trainer.fit(fn(i) for i in range(steps))
+        return trainer
+
+    paths = {}
+
+    # -- 12a: gemma3-4b at full width and depth through the launcher -------
+    argv = GEMMA3_ARGS + ["--steps", str(GEMMA3_STEPS), "--program", ZOO_PROGRAM]
+    log(f"phase 12a: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, total, peak = run("12a", lambda: lm_train.main(argv), GEMMA3_PARAMS)
+    cfg = trainer.model.cfg
+    check(cfg.n_layers == 34 and cfg.window == 1024
+          and sum(cfg.layer_is_local(i) for i in range(34)) == 29
+          and all(p.dtype == torch.bfloat16 for p in trainer.net.parameters())
+          and cfg.remat, "12a: not gemma3-4b's full configuration in bf16 with remat")
+    check(len(steps_seen) == GEMMA3_STEPS, f"12a: {len(steps_seen)} steps")
+    ms = [m for _, m, _, _ in steps_seen]
+    log(f"phase 12a: AdamW moments f32; off step 0 {ms[0]:.3f} ms (first-use "
+        f"costs), kernel steps {min(ms[2:]):.3f}-{max(ms[2:]):.3f} ms (step 1 "
+        f"{ms[1]:.3f} ms); launches over the run {nonzero(total)}; peak device "
+        f"memory {peak / 2**30:.2f} GiB ({card})")
+    paths[f"gemma3-4b kernel {GEMMA3_STEPS} steps ({ZOO_FIRST_KERNEL_STEP} off)"] = total
+    tcfg = TokenStreamConfig(vocab=cfg.vocab, seq_len=ZOO_SEQ, batch=ZOO_BATCH)
+    batch = token_batch(tcfg, ZOO_FIRST_KERNEL_STEP, device=dev)
+    profile_step(torch, lambda: trainer.train_step(batch, ZOO_FIRST_KERNEL_STEP),
+                 card, "gemma3-4b kernel step", steps=1, phase="12a",
+                 what="one gemma3-4b training step, variant=kernel (batch 8 x "
+                      "seq 128, bf16, remat, AdamW)")
+    # -- 12b: the first kernel step's gradients against the plain versions -
+    grad_check(trainer, "12b")
+    release(trainer)
+    trainer = None
+
+    # -- 12c and 12d: the depth-cut configurations -------------------------
+    def pack_check(label, arch, trainer, total):
+        """The expert slices' packs of the run: launched, the all-zero tiles
+        counted, one captured slice of each shape (the gate and up einsums'
+        (C, f), the down einsum's (C, d), C padded to 128) bit for bit
+        against the plain version and timed."""
+        check(total["bitmap_pack"] > 0, f"{label}: no pack launch")
+        skipped = int(torch.stack(packs["skipped"]).sum())
+        cfg = trainer.model.cfg
+        per_step = zoo_kernel_step(cfg)["bitmap_pack"]
+        log(f"phase {label}: {arch} {total['bitmap_pack']} pack launches "
+            f"({per_step} a kernel step: {n_blocks(cfg.n_layers)} x 3 expert "
+            f"einsums x {cfg.moe.n_experts} experts); the expert slices' 128 x "
+            f"128 tiles: {packs['tiles']}, of which {skipped} all-zero (skipped "
+            f"by both int8 products) ({card})")
+        figs = {"tiles": packs["tiles"], "tiles_skipped": skipped}
+        for (M, N), (kp, kw) in sorted(packs["slices"].items()):
+            same("bitmap_pack", kernel["bitmap_pack"](kp, **kw),
+                 plain["bitmap_pack"](kp, **kw), f"{label} expert slice {M}x{N}")
+            nbytes = M * N + M * N // 8 + 2 * (M // 128) * (N // 128) * 4
+            fig = figs[f"{M}x{N}"] = {
+                "ms": time_ms(lambda: kernel["bitmap_pack"](kp, **kw)),
+                "graph_ms": graph_ms(lambda: kernel["bitmap_pack"](kp, **kw)),
+                "plain_ms": time_ms(lambda: plain["bitmap_pack"](kp, **kw),
+                                    launches=2, groups=3),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None}  # no one PyTorch call packs a bitmap
+            log(f"phase {label}: {arch}'s pack at the expert-slice shape {M}x{N}: "
+                f"bit for bit; {fig['ms']:.4f} ms (device {fig['graph_ms']:.4f} ms "
+                f"in graph replay), bound {fig['bound_ms']:.5f} ms (bytes), "
+                f"plain {fig['plain_ms']:.4f} ms ({card})")
+        return figs
+
+    pack_slices = {}
+    for arch, blocks, steps, quant in ZOO_CUTS:
+        label = "12c" if arch == "moonshot-v1-16b-a3b" else "12d"
+        log(f"phase {label}: {arch} at full width cut to {n_blocks(blocks)}, "
+            f"{steps} steps, {f'{ZOO_PROGRAM} {quant}'.strip()!r}")
+        trainer, total, peak = run(
+            label, lambda: cut_trainer(arch, blocks, steps, quant))
+        paths[f"{arch} {n_blocks(blocks)} kernel {steps} "
+              f"steps ({ZOO_FIRST_KERNEL_STEP} off){', ' + quant if quant else ''}"] = total
+        if trainer.model.cfg.moe is not None:
+            pack_slices[arch] = pack_check(label, arch, trainer, total)
+        if label == "12c":
+            tcfg = TokenStreamConfig(vocab=trainer.model.cfg.vocab,
+                                     seq_len=ZOO_SEQ, batch=ZOO_BATCH)
+            batch = token_batch(tcfg, ZOO_FIRST_KERNEL_STEP, device=dev)
+            profile_step(torch, lambda: trainer.train_step(batch, ZOO_FIRST_KERNEL_STEP),
+                         card, f"moonshot {blocks}-block kernel step", steps=1,
+                         phase="12c",
+                         what=f"one moonshot-v1-16b-a3b training step cut to "
+                              f"{blocks} blocks, variant=kernel (batch 8 x seq "
+                              f"128, bf16, remat, AdamW)")
+        if trainer.model.cfg.moe is not None:
+            grad_check(trainer, label)
+        release(trainer)
+        trainer = None
+    argv = ["--arch", ZOO_SMOKE_TRAIN, "--preset", "smoke", "--batch",
+            str(ZOO_BATCH), "--seq", str(ZOO_SEQ), "--steps", "2", "--program",
+            ZOO_PROGRAM]
+    log(f"phase 12d: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, total, _ = run("12d", lambda: lm_train.main(argv))
+    paths[f"{ZOO_SMOKE_TRAIN} smoke kernel 2 steps (1 off)"] = total
+    release(trainer)
+    trainer = None
+
+    # -- 12e: serving ---------------------------------------------------------
+    real_tick = engine_mod.Engine.step
+    ticks = []
+
+    def timed_tick(self):
+        t0 = time.perf_counter()
+        real_tick(self)
+        ticks.append((time.perf_counter() - t0) * 1e3)
+
+    argv = ["--preset", "full", "--serve", ZOO_SERVE_SPEC, "--requests",
+            str(ZOO_SERVE_REQUESTS), "--new-tokens", str(ZOO_SERVE_NEW)]
+    build.reset_launches()
+    engine_mod.Engine.step = timed_tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sup = launch_serve.main(argv)
+    finally:
+        engine_mod.Engine.step = real_tick
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    w = sup.workers["gemma3-4b"]
+    check(sorted(w.results) == list(range(ZOO_SERVE_REQUESTS))
+          and all(len(v) == ZOO_SERVE_NEW for v in w.results.values()),
+          f"12e: served {sorted(w.results)}")
+    check(not any(build.LAUNCHES.values()), "12e: a kernel launched in serving")
+    bufs = [K.shape[1] for K, _ in w.engine.cache]
+    rest = sorted(ticks[1:])
+    log(f"phase 12e: python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{len(w.results)}/{ZOO_SERVE_REQUESTS} requests on dense buffers of "
+        f"{sorted(set(bufs))} slots, {len(ticks)} ticks; "
+        f"{ZOO_SERVE_REQUESTS * ZOO_SERVE_NEW / seconds:.2f} tokens/s over "
+        f"{seconds:.2f} s (the model's build included); the first tick "
+        f"{ticks[0]:.3f} ms, the other {len(rest)} median "
+        f"{statistics.median(rest):.3f} ms ({card})")
+    release(sup, w)
+
+    def stepwise(m, net, prompt, n_new, max_len):
+        """Greedy tokens from an empty cache, the prompt fed one token a
+        step: the engine's routing at batch 1, chunk 1."""
+        cache = m.init_cache(1, max_len, device=dev)
+        out, tok = [], None
+        for t in range(len(prompt) + n_new - 1):
+            feed = (torch.tensor([[int(prompt[t])]], device=dev) if t < len(prompt)
+                    else tok)
+            logits, cache = m.decode_step(net, cache, feed, t)
+            if t >= len(prompt) - 1:
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                out.append(int(tok))
+        return out
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, size=n) for n in (11, 9, 13, 10)]
+    for arch, mb, chunk in (("gemma3-4b", 4, 8), ("moonshot-v1-16b-a3b", 1, 1)):
+        m = get_smoke_model(arch)
+        net = m.init(0, dev)
+        eng = Engine(m, net, ServeConfig(max_batch=mb, max_len=64, chunk=chunk))
+        for i, p in enumerate(prompts):
+            check(eng.submit(Request(uid=i, prompt=p, max_new_tokens=16)),
+                  f"12e {arch}: request {i} refused")
+        done = eng.run(max_ticks=400)
+        check(sorted(done) == list(range(len(prompts))), f"12e {arch}: {sorted(done)}")
+        if m.cfg.window is not None:
+            ref, what = [greedy_generate(m, net, p, 16, max_len=64)
+                         for p in prompts], "greedy_generate's"
+        else:
+            ref = [stepwise(m, net, p, 16, 64) for p in prompts]
+            what = "a token-by-token decode's"
+        check([done[i] for i in range(len(prompts))] == ref,
+              f"12e {arch}: the engine's tokens differ from {what}")
+        greedy_same = sum(done[i] == greedy_generate(m, net, p, 16, max_len=64)
+                          for i, p in enumerate(prompts))
+        log(f"phase 12e: {arch} smoke in the engine (batch {mb}, chunk {chunk}, "
+            f"prompts of {[len(p) for p in prompts]} tokens + 16, window "
+            f"{m.cfg.window}): every request's tokens equal {what}; "
+            f"greedy_generate agrees on {greedy_same} of {len(prompts)} requests")
+        release(net, eng)
+    for arch in ZOO_ARCHS:
+        sup = launch_serve.main(["--arch", arch, "--requests", "3",
+                                 "--new-tokens", "8", "--max-len", "64"])
+        n_done = sum(h.finished for h in sup.health())
+        check(n_done == 3, f"12e {arch}: served {n_done}/3")
+        release(sup)
+    log(f"phase 12e: the serve launcher served 3/3 requests for each of "
+        f"{', '.join(ZOO_ARCHS)} (--preset smoke)")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return paths, pack_slices
+
+
 def main() -> int:
     import torch
 
@@ -2962,7 +3415,21 @@ def main() -> int:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in ft_launches.items()})
 
-    # -- phases 12 and 13 --------------------------------------------------
+    # -- phase 12: the rest of the LM zoo ----------------------------------
+    zoo_launches, pack_slices = phase12(torch, card, dev, plain_kernels, swapped,
+                                       kernel, plain, worst_rel, same, time_ms,
+                                       graph_ms)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in zoo_launches.items()})
+        if row["name"] == "bitmap_pack":
+            row["note"] = ("launched on the MoE path (phases 12c and 12d: one "
+                           "launch per expert slice of each expert einsum); the "
+                           "figures above are the fp32 step's k, those at the "
+                           "expert-slice shapes under moe_expert_slice, by arch")
+            row["moe_expert_slice"] = pack_slices
+
+    # -- phases 13 and 14 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

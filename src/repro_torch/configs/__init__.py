@@ -1,9 +1,11 @@
 """Model configurations: the paper's classifiers (``paper_models``) and the
 LM architecture registry (``--arch <id>`` of ``repro_torch.launch.train``).
 
-Counterpart of ``repro.configs``; the registry holds the archs the port has.
-The reference's other nine (``NOT_PORTED``) raise ``NotImplementedError``
-naming ROADMAP.md section 1, item 6."""
+Counterpart of ``repro.configs``; the registry holds the archs the port has:
+the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b) and MoE
+(moonshot-v1-16b-a3b, dbrx-132b) families. The reference's other four
+(``NOT_PORTED``: the VLM, SSM, hybrid and audio archs) raise
+``NotImplementedError`` naming ROADMAP.md section 1, item 6."""
 from __future__ import annotations
 
 import importlib
@@ -12,13 +14,16 @@ from typing import Dict
 from repro_torch.models.transformer import ZOO_TODO
 
 _MODULES: Dict[str, str] = {
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
 }
 
 ARCH_IDS = tuple(_MODULES)
-NOT_PORTED = ("qwen2.5-32b", "gemma3-4b", "minitron-8b", "dbrx-132b",
-              "moonshot-v1-16b-a3b", "hymba-1.5b", "mamba2-370m",
-              "internvl2-2b", "whisper-small")
+NOT_PORTED = ("hymba-1.5b", "mamba2-370m", "internvl2-2b", "whisper-small")
 
 
 def _module(arch_id: str):

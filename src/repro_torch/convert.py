@@ -10,7 +10,12 @@ LMs (:func:`lm_params_from_jax`): the reference's ``init_lm`` tree is
 nested, ``{"embed": {"table"}, "layers": {...}, "head": {"ln_f"}}``, its
 blocks stacked along a leading (n_layers, ...) axis for the scan; the port's
 ``LM`` has one block per layer, ``layers.{i}.attn.wq`` and so on. Dense
-weights keep the (in, out) layout, so no array is transposed.
+weights keep the (in, out) layout, so no array is transposed. The names
+are the reference's keys joined by dots, so every tree of the dense and MoE
+families maps by name alone: the q/k/v biases (``attn.bq``, ``.bk``,
+``.bv``), the untied ``head.lm_head``, relu2's MLP without ``w_gate``, and
+the MoE block's ``moe.router``, ``moe.w_gate`` / ``w_up`` / ``w_down`` (E,
+d, f) and shared experts ``moe.ws_*``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Dithered backprop as PyTorch ops (the paper's eqs. 7-9).
 
-Counterpart of ``repro.core.dithered`` for ``dense`` and ``conv2d``. The
-forward is exact. The backward takes the pre-activation cotangent g (delta_z
-in the paper), quantizes it once, and uses the quantized tensor for both
-products:
+Counterpart of ``repro.core.dithered`` for ``dense``, ``conv2d`` and
+``dithered_einsum``. The forward is exact. The backward takes the
+pre-activation cotangent g (delta_z in the paper), quantizes it once, and
+uses the quantized tensor for both products:
 
     dx = g~ . W^T        (activation gradient, eq. 8)
     dW = x^T . g~        (weight gradient, eq. 9)
@@ -22,7 +22,20 @@ Variants (``DitherPolicy.variant``):
   kernel  fused NSD (with the bitmap and tile mask) + tile-skipping int8
           products on the CUDA kernels (``repro_torch.kernels.ops``); a
           convolution goes through im2col (``F.unfold``), and dx folds back
-          with ``F.fold``.
+          with ``F.fold``; an einsum by its form (:func:`_einsum_form`).
+
+A two-operand einsum (:func:`dithered_einsum`, the MoE expert FFNs) takes
+the generic path in every variant but ``kernel``: its cotangent is
+quantized whole (Delta over every element, the draw of its (T, N) view, T
+the product of the leading axes) and pushed through the einsum's exact
+vector-Jacobian product. Under ``kernel``, ``...k,kn->...n``
+(``dense2d``) is a dense layer on the flattened operands, and
+``B...k,Bkn->B...n`` (``batched``) quantizes the whole (B x ..., N)
+cotangent with one NSD launch (one Delta, one draw), then, for each slice
+b, packs the slice's k (the pack kernel, through
+``ops.quantized_from_indices``) and runs both int8 products on it and
+slice b of x and w. Any other form is a counted fallback
+(``ops.KERNEL_FALLBACKS``) to the generic path, as in the reference.
 
 The noise of a layer is drawn for its 2-D cotangent (T, N): the kernel
 variant (and int8's dense layers) hands the NSD launch the layer's stream
@@ -63,6 +76,7 @@ row, as in the reference).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -91,28 +105,32 @@ def _emit_zero_share(out: torch.Tensor, bits: float, name: str) -> None:
 
 
 def _cotangent_noise(dctx: DitherCtx, pol: DitherPolicy, name: str, shape):
-    """The noise the generic path's quantizer consumes for a (T, N)
-    cotangent: for a cotangent codec that takes noise, the layer's stream
-    key (or fed draw, ``DitherCtx.cotangent_dither``), for one that takes
-    none, None; else by variant, the unit draw u (T, N) for NSD, one number
-    a row (T, 1) for row dither, none for meProp."""
+    """The noise the generic path's quantizer consumes for a (..., N)
+    cotangent of T rows (the product of the leading axes): for a cotangent
+    codec that takes noise, the layer's stream key (or fed draw,
+    ``DitherCtx.cotangent_dither``), for one that takes none, None; else by
+    variant, the unit draw u of the cotangent's shape for NSD (the draw of
+    its (T, N) view), one number a row (T, 1) for row dither, none for
+    meProp."""
     if pol.grad_codec is not None:
         return (dctx.cotangent_dither(name, shape)
                 if quant.takes_noise(pol.grad_codec) else None)
     if pol.variant == VARIANT_MEPROP:
         return None
     if pol.variant == VARIANT_ROW:
-        return dctx.unit_noise(name, (shape[0], 1))
+        return dctx.unit_noise(name, (math.prod(shape[:-1]), 1))
     return dctx.unit_noise(name, shape)
 
 
 def quantize_cotangent(g2d: torch.Tensor, u, pol: DitherPolicy, name: str
                        ) -> torch.Tensor:
-    """The generic path's quantizer of a 2-D cotangent (see
+    """The generic path's quantizer of a cotangent (see
     :func:`_cotangent_noise` for ``u``): the cotangent codec's round trip
     when ``pol.grad_codec`` is set, else by variant NSD's fake-quant
     k * Delta (paper, int8 and kernel variants), the row dither (u + 1/2,
-    exact in f32, is the row's uniform in [0, 1)), or meProp's top-k."""
+    exact in f32, is the row's uniform in [0, 1)), or meProp's top-k. A
+    dense layer's and a convolution's cotangent is 2-D; an einsum's keeps
+    its shape, as in the reference, whose Delta reduces over that shape."""
     if pol.grad_codec is not None:
         out = quant.quantize(pol.grad_codec, g2d, u).to(g2d.dtype)
         if pol.collect_stats:
@@ -351,6 +369,95 @@ class _DitheredConv2d(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+def _einsum_form(spec: str) -> Optional[str]:
+    """The kernel backward's form of a two-operand einsum: ``"dense2d"``
+    for ``...k,kn->...n`` (one 2-D weight: flatten and run the dense
+    layer's kernels), ``"batched"`` for ``B...k,Bkn->B...n`` (a leading
+    axis shared by both operands, a 2-D product a slice: the expert FFNs),
+    None for any other (the reference's classifier, letter for letter)."""
+    if "->" not in spec or "." in spec:
+        return None
+    ins, out = spec.split("->")
+    if "," not in ins:
+        return None
+    a, b = ins.split(",")
+    if len(set(a)) != len(a) or len(set(b)) != len(b):
+        return None
+    if len(b) == 2 and len(a) >= 2 and a[-1] == b[0] \
+            and out == a[:-1] + b[1] and b[1] not in a:
+        return "dense2d"
+    if len(b) == 3 and len(a) >= 3 and a[0] == b[0] \
+            and a[-1] == b[1] and out == a[0] + a[1:-1] + b[2] \
+            and b[2] not in a:
+        return "batched"
+    return None
+
+
+def _batched_kernel_products(g, x, w, noise, pol: DitherPolicy, name: str,
+                             need_dx: bool):
+    """The ``batched`` form's kernel backward: one NSD launch over the
+    whole (n_b x C, N) cotangent, so that Delta and the draw are the
+    paper path's; then slice b's k (C, N) is packed (its bitmap, tile nnz
+    and mask) and both int8 products run on it, x's slice (C, K) and w's
+    (K, N)."""
+    n_b, fdim = x.shape[0], g.shape[-1]
+    g2d = g.reshape(-1, fdim)
+    q = ops.quantize_and_mask(g2d, noise, pol.s)
+    T = g2d.shape[0]
+    if pol.collect_stats:
+        metrics.emit(name, nsd.quant_stats(q.k[:T, :fdim], q.delta))
+    k3 = q.k[:T, :fdim].reshape(n_b, -1, fdim)
+    x3 = x.reshape(n_b, -1, x.shape[-1])
+    dxs, dws = [], []
+    for e in range(n_b):
+        dx_e, dw_e = ops.bsp_backward_from_quantized(
+            ops.quantized_from_indices(k3[e], q.delta), x3[e], w[e],
+            need_dx=need_dx)
+        dxs.append(dx_e)
+        dws.append(dw_e)
+    dx = torch.stack(dxs).reshape(x.shape) if need_dx else None
+    return dx, torch.stack(dws)
+
+
+class _DitheredEinsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, spec: str, pol: DitherPolicy, dctx: DitherCtx,
+                name: str):
+        _save_residual(ctx, x, w, pol, dctx, name, conv=False)
+        ctx.spec, ctx.pol, ctx.dctx, ctx.name = spec, pol, dctx, name
+        return torch.einsum(spec, x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = _load_residual(ctx, conv=False)
+        spec, pol, name = ctx.spec, ctx.pol, ctx.name
+        need_dx = ctx.needs_input_grad[0]
+        g2d = g.reshape(-1, g.shape[-1])
+        form = (_einsum_form(spec) if pol.variant == VARIANT_KERNEL
+                and pol.grad_codec is None else None)
+        if form is not None:
+            noise = ctx.dctx.cotangent_dither(name, g2d.shape)
+            if form == "dense2d":
+                dx2d, dw = _kernel_products(g2d, x.reshape(-1, x.shape[-1]),
+                                            w, noise, pol, name, need_dx)
+                dx = dx2d.reshape(x.shape) if need_dx else None
+            else:
+                dx, dw = _batched_kernel_products(g, x, w, noise, pol, name,
+                                                  need_dx)
+            return dx, dw, None, None, None, None
+        if pol.variant == VARIANT_KERNEL and pol.grad_codec is None:
+            ops.note_fallback("einsum:unsupported-form:" + spec, name)
+        gq = quantize_cotangent(
+            g, _cotangent_noise(ctx.dctx, pol, name, g.shape), pol, name)
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(need_dx)
+            ww = w.detach().requires_grad_()
+            y = torch.einsum(spec, xx, ww)
+            grads = torch.autograd.grad(y, (xx, ww) if need_dx else (ww,), gq)
+        dx, dw = grads if need_dx else (None, grads[0])
+        return dx, dw, None, None, None, None
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           *, ctx: Optional[DitherCtx] = None, name: str = "dense"
           ) -> torch.Tensor:
@@ -386,3 +493,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         xp, tpad = _padded_input(x, pads)
         y = F.conv2d(xp, w, None, stride, tpad, dilation, groups)
     return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
+def dithered_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
+                    ctx: Optional[DitherCtx] = None, name: str = "einsum"
+                    ) -> torch.Tensor:
+    """``torch.einsum(spec, x, w)`` with a dithered backward when the
+    context's policy covers ``name`` (see the module's docstring for the
+    kernel variant's forms)."""
+    pol = ctx.resolve(name) if ctx is not None else None
+    if pol is not None and _differentiable(x, w):
+        return _apply_op(lambda xx, ww, p: _DitheredEinsum.apply(
+            xx, ww, spec, p, ctx, name), x, w, pol, ctx, name)
+    return torch.einsum(spec, x, w)

@@ -16,8 +16,12 @@ exports the ``serve`` stream's rows and the monitor events through the run
 log. ``--arch`` (with ``--max-len``) builds a one-worker spec. The
 parameters are the model's seed-0 draw (``Model.init(0, device)``).
 
-Runs on CUDA unless ``--device cpu``. The reference's archs that the port
-lacks are refused, naming ROADMAP.md section 1, item 6.
+Archs: the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b) and MoE
+(moonshot-v1-16b-a3b, dbrx-132b) families; a windowed config (gemma3-4b)
+takes dense buffers (``page=0``, the default), its local layers' rings of
+``min(window, max_len)`` slots. Runs on CUDA unless ``--device cpu``. The
+reference's archs that the port lacks are refused, naming ROADMAP.md
+section 1, item 6.
 """
 from __future__ import annotations
 

@@ -4,9 +4,14 @@
         --steps 3 --device cpu \\
         --program "dither: phase@0=off;phase@1=kernel;rule lm_head:off"
 
-Counterpart of ``repro.launch.train``. Presets: ``smoke``, the arch's
-reduced f32 configuration (CPU-sized); ``full``, its published widths (bf16,
-remat per block; gemma-2b fits one 80 GB card with AdamW). The dither
+Counterpart of ``repro.launch.train``. Archs: gemma-2b, gemma3-4b,
+qwen2.5-32b, minitron-8b (dense), moonshot-v1-16b-a3b and dbrx-132b (MoE);
+the reference's other four are refused, naming ROADMAP.md section 1, item
+6. Presets: ``smoke``, the arch's reduced f32 configuration (CPU-sized);
+``full``, its published widths (bf16, remat per block; gemma-2b and
+gemma3-4b fit one 80 GB card with AdamW, the others' state does not: a
+depth-cut run builds ``dataclasses.replace(cfg, n_layers=...)`` and drives
+``repro_torch.train.Trainer``, as ``chip_smoke.py`` does). The dither
 comes from ``--dither``/``--s`` as the base policy, and the ``dither:``
 section of ``--program`` (phases, knob schedules, per-layer rules; the
 kernel variant is reached through a phase or rule ``kernel``); the
@@ -51,8 +56,9 @@ log = get_logger("repro_torch.train")
 
 
 def batch_fn_for(model, batch: int, seq: int, device):
-    """Step -> the synthetic token batch of that step (dense family)."""
-    if model.family != "dense":
+    """Step -> the synthetic token batch of that step (the dense and MoE
+    families: tokens and labels)."""
+    if model.family not in ("dense", "moe"):
         raise NotImplementedError(f"batch_fn_for: family {model.family!r}")
     tcfg = TokenStreamConfig(vocab=model.cfg.vocab, seq_len=seq, batch=batch)
     return lambda step: token_batch(tcfg, step, device=device)

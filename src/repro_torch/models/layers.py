@@ -1,7 +1,8 @@
-"""The layers of the dense decoder: initialisation, RMSNorm, rotary
-embedding, grouped-query attention, the GeGLU MLP and the tied embedding.
+"""The layers of the decoder LMs: initialisation, RMSNorm, the activations,
+rotary embedding, grouped-query attention (q/k/v biases, sliding windows),
+the gated (SwiGLU, GeGLU) and squared-ReLU MLPs and the embedding.
 
-Counterpart of the parts of ``repro.models.layers`` that the dense LM calls.
+Counterpart of the parts of ``repro.models.layers`` that the LMs call.
 Every weight-bearing product goes through ``repro_torch.core.dithered.dense``,
 so dithered backprop covers each projection and the tied unembedding. The
 attention itself (scores, softmax, the probability-value product) is plain
@@ -12,11 +13,12 @@ Decode (serving): :func:`cached_attention` writes one token a slot into a
 dense (B, S_buf, KV, hd) buffer, under one shared position or per-slot
 positions (t < 0: an inactive slot, whose write is dropped and whose row is
 all invalid), or into a paged cache (``repro_torch.serve.kvcache``), and
-attends over the whole buffer.
+attends over the whole buffer. A windowed layer's buffer is a ring of
+``min(window, max_len)`` slots (position p at slot p mod S_buf).
 
-Not ported yet (ROADMAP.md section 1, item 6): layer norm, the other MLP
-kinds, biases on q/k/v, sliding windows (the ring buffers' window and
-prefix) and soft-capping, cross-attention.
+Not ported yet (ROADMAP.md section 1, item 6): layer norm and soft-capping
+(no ported arch sets them), the window's pinned prefix (hymba's meta
+tokens), cross-attention.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ class Init:
         return nn.Parameter(torch.ones(shape, device=self.device,
                                        dtype=self.dtype))
 
+    def zeros(self, *shape: int) -> nn.Parameter:
+        return nn.Parameter(torch.zeros(shape, device=self.device,
+                                        dtype=self.dtype))
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
@@ -65,6 +71,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+_ACTS = {
+    "gelu": functools.partial(F.gelu, approximate="tanh"),  # jax.nn.gelu's
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu2": _relu2,
+    "tanh": torch.tanh,
+}
+
+
+def act_fn(name: str):
+    """The reference's activations by name; GELU in its tanh form (the
+    default of ``jax.nn.gelu``), relu2 the squared ReLU."""
+    return _ACTS[name]
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -109,10 +134,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
-                   valid_k: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(..., Sq, Sk) causal mask from position indices: key <= query, and
-    the key valid where ``valid_k`` (..., Sk) is given."""
-    m = k_pos[..., None, :] <= q_pos[..., :, None]
+                   valid_k: Optional[torch.Tensor] = None, *,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """(..., Sq, Sk) causal mask from position indices: key <= query,
+    within the last ``window`` positions (key > query - window) when a
+    window is given, and the key valid where ``valid_k`` (..., Sk) is
+    given."""
+    qp, kp = q_pos[..., :, None], k_pos[..., None, :]
+    m = kp <= qp
+    if window is not None:
+        m = m & (kp > qp - window)
     if valid_k is not None:
         m = m & valid_k[..., None, :]
     return m
@@ -164,14 +195,27 @@ def ring_slot_positions(t: torch.Tensor, s_buf: int):
 
 
 def init_attention(ini: Init, d_model: int, n_heads: int, n_kv_heads: int,
-                   head_dim: int) -> nn.ParameterDict:
-    """wq (d, H hd), wk and wv (d, KV hd), wo (H hd, d)."""
+                   head_dim: int, qkv_bias: bool = False) -> nn.ParameterDict:
+    """wq (d, H hd), wk and wv (d, KV hd), wo (H hd, d); with ``qkv_bias``
+    the zero biases bq (H hd), bk and bv (KV hd)."""
     d = d_model
-    return nn.ParameterDict({
+    p = nn.ParameterDict({
         "wq": ini.normal(d, n_heads * head_dim, fan_in=d),
         "wk": ini.normal(d, n_kv_heads * head_dim, fan_in=d),
         "wv": ini.normal(d, n_kv_heads * head_dim, fan_in=d),
         "wo": ini.normal(n_heads * head_dim, d, fan_in=n_heads * head_dim)})
+    if qkv_bias:
+        p["bq"] = ini.zeros(n_heads * head_dim)
+        p["bk"] = ini.zeros(n_kv_heads * head_dim)
+        p["bv"] = ini.zeros(n_kv_heads * head_dim)
+    return p
+
+
+def _qkv(p: nn.ParameterDict, h: torch.Tensor, ctx, name: str):
+    """The q, k and v projections of h, each bias (when the layer has one)
+    added outside the dithered product, as in the reference."""
+    return tuple(dense(h, p[f"w{c}"], p[f"b{c}"] if f"b{c}" in p else None,
+                       ctx=ctx, name=f"{name}.{c}") for c in "qkv")
 
 
 def attention(p: nn.ParameterDict, h: torch.Tensor, pos_b: torch.Tensor,
@@ -183,9 +227,7 @@ def attention(p: nn.ParameterDict, h: torch.Tensor, pos_b: torch.Tensor,
     reference's ``transformer._attend_with_mask``). Returns (y, (k, v)),
     k and v the roped keys and values (B, S, KV, hd) that prefill caches."""
     B, S = h.shape[:2]
-    q = dense(h, p["wq"], ctx=ctx, name=f"{name}.q")
-    k = dense(h, p["wk"], ctx=ctx, name=f"{name}.k")
-    v = dense(h, p["wv"], ctx=ctx, name=f"{name}.v")
+    q, k, v = _qkv(p, h, ctx, name)
     q = apply_rope(q.reshape(B, S, n_heads, head_dim), pos_b, rope_theta)
     k = apply_rope(k.reshape(B, S, n_kv_heads, head_dim), pos_b, rope_theta)
     v = v.reshape(B, S, n_kv_heads, head_dim)
@@ -206,7 +248,7 @@ def _write_token(buf: torch.Tensor, new: torch.Tensor, write_at: torch.Tensor
 def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
                      kv_cache, n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: float, *, rope, t_host=None,
-                     name: str = "attn"):
+                     window: Optional[int] = None, name: str = "attn"):
     """One decode step of causal self-attention for x (B, 1, d), the new
     token of each slot, at cache index t; returns (y (B, 1, d), new cache).
     The reference's ``attention`` with ``kv_cache`` and ``cache_index``:
@@ -222,13 +264,16 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
 
     The projections run with no dither context (serving has no backward).
     ``rope``: the rotary table of ``decode_positions(t)``, which every
-    layer of a step shares (:func:`rope_table`).
+    layer of a step shares (:func:`rope_table`). ``window``: a windowed
+    layer's size, on dense buffers only (the ring of its last positions;
+    the mask holds the window as well, as the reference's does).
     """
     B = x.shape[0]
     positions = decode_positions(t)
-    q = dense(x, p["wq"], name=f"{name}.q").reshape(B, 1, n_heads, head_dim)
-    k = dense(x, p["wk"], name=f"{name}.k").reshape(B, 1, n_kv_heads, head_dim)
-    v = dense(x, p["wv"], name=f"{name}.v").reshape(B, 1, n_kv_heads, head_dim)
+    q, k, v = _qkv(p, x, None, name)
+    q = q.reshape(B, 1, n_heads, head_dim)
+    k = k.reshape(B, 1, n_kv_heads, head_dim)
+    v = v.reshape(B, 1, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta, table=rope)
     k = apply_rope(k, positions, rope_theta, table=rope)
     if hasattr(kv_cache, "update_and_view"):
@@ -246,27 +291,39 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
             valid = valid & (t >= 0)[:, None]
         K, V = _write_token(K, k, write_at), _write_token(V, v, write_at)
         out_cache = (K, V)
-        mask = attention_mask(t.expand(B)[:, None], k_pos, valid_k=valid)
+        mask = attention_mask(t.expand(B)[:, None], k_pos, valid_k=valid,
+                              window=window)
     y = _sdpa(q, K.to(q.dtype), V.to(q.dtype), mask)
     y = y.reshape(B, 1, n_heads * head_dim)
     return dense(y, p["wo"], name=f"{name}.o"), out_cache
 
 
-def init_mlp(ini: Init, d_model: int, d_ff: int) -> nn.ParameterDict:
-    """The GeGLU MLP's w_gate and w_up (d, f) and w_down (f, d)."""
-    return nn.ParameterDict({
-        "w_gate": ini.normal(d_model, d_ff, fan_in=d_model),
-        "w_up": ini.normal(d_model, d_ff, fan_in=d_model),
-        "w_down": ini.normal(d_ff, d_model, fan_in=d_ff)})
+GATED = ("swiglu", "geglu")  # the MLP kinds with a gate projection
 
 
-def mlp(p: nn.ParameterDict, x: torch.Tensor, *,
+def init_mlp(ini: Init, d_model: int, d_ff: int, kind: str
+             ) -> nn.ParameterDict:
+    """A gated MLP's (``swiglu``, ``geglu``) w_gate and w_up (d, f) and
+    w_down (f, d); the other kinds (``relu2``, ``gelu``) have no gate."""
+    p = nn.ParameterDict()
+    if kind in GATED:
+        p["w_gate"] = ini.normal(d_model, d_ff, fan_in=d_model)
+    p["w_up"] = ini.normal(d_model, d_ff, fan_in=d_model)
+    p["w_down"] = ini.normal(d_ff, d_model, fan_in=d_ff)
+    return p
+
+
+def mlp(p: nn.ParameterDict, x: torch.Tensor, kind: str, *,
         ctx: Optional[DitherCtx] = None, name: str = "mlp") -> torch.Tensor:
-    """GeGLU: down(gelu(gate(x)) * up(x)), GELU in its tanh form (the
-    default of ``jax.nn.gelu``)."""
-    g = dense(x, p["w_gate"], ctx=ctx, name=f"{name}.gate")
-    u = dense(x, p["w_up"], ctx=ctx, name=f"{name}.up")
-    h = F.gelu(g, approximate="tanh") * u
+    """down(act(gate(x)) * up(x)) for the gated kinds (SiLU for
+    ``swiglu``, GELU in its tanh form for ``geglu``), down(act(up(x)))
+    for the others (``relu2``: the squared ReLU)."""
+    if kind in GATED:
+        g = dense(x, p["w_gate"], ctx=ctx, name=f"{name}.gate")
+        u = dense(x, p["w_up"], ctx=ctx, name=f"{name}.up")
+        h = act_fn("silu" if kind == "swiglu" else "gelu")(g) * u
+    else:
+        h = act_fn(kind)(dense(x, p["w_up"], ctx=ctx, name=f"{name}.up"))
     return dense(h, p["w_down"], ctx=ctx, name=f"{name}.down")
 
 
@@ -283,7 +340,7 @@ def unembed(table: torch.Tensor, x: torch.Tensor, *,
             ctx: Optional[DitherCtx] = None, name: str = "lm_head"
             ) -> torch.Tensor:
     """Logits x . table^T through the dithered dense ``lm_head`` (the tied
-    unembedding)."""
+    unembedding; an untied head is a plain ``dense`` of its own weight)."""
     return dense(x, table.t().to(x.dtype), ctx=ctx, name=name)
 
 

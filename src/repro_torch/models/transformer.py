@@ -1,37 +1,47 @@
-"""The dense decoder-only LM (gemma-2b's family): training and decoding.
+"""The decoder-only LMs (the dense and MoE families): training and
+decoding.
 
-Counterpart of the dense path of ``repro.models.transformer``: ``LMConfig``,
-``init_lm``, the block, ``forward`` and ``loss_fn``, and for serving
-``cache_buf_len``, ``init_cache``, ``decode_step`` and ``prefill``. The
-reference scans its stacked blocks under one layer tag, ``"L"``; the port
-loops an ``nn.ModuleList`` and names every block's layers under that same
-tag (``L.attn.q``, ``L.mlp.gate``, ...), so that rules such as ``L*.mlp.*``,
-telemetry tags and the dither streams (``fold_in(key, name_salt(name))``,
-the same key for every layer at a step, as in the reference) match. With
-``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` with ``nothing_saveable``): its forward runs
-again in the backward, its residual encodes included; the rerun's context
-is marked ``recompute``, so each block's memory telemetry is recorded once
-a step, by the first run.
+Counterpart of ``repro.models.transformer``: ``LMConfig``, ``init_lm``, the
+block, ``forward`` and ``loss_fn``, and for serving ``cache_buf_len``,
+``init_cache``, ``decode_step`` and ``prefill``. The reference scans its
+stacked blocks under one layer tag, ``"L"``; the port loops an
+``nn.ModuleList`` and names every block's layers under that same tag
+(``L.attn.q``, ``L.mlp.gate``, ``L.moe.up``, ...), so that rules such as
+``L*.mlp.*``, telemetry tags and the dither streams (``fold_in(key,
+name_salt(name))``, the same key for every layer at a step, as in the
+reference) match. With ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): its forward runs again in the backward, its residual
+encodes included; the rerun's context is marked ``recompute``, so each
+block's memory telemetry is recorded once a step, by the first run.
+
+The block: pre-norm attention (q/k/v biases with ``qkv_bias``) and an MLP
+of kind ``act`` (``swiglu``, ``geglu``, ``relu2``) or, with ``moe``, the
+mixture-of-experts layer (``repro_torch.models.moe``), whose load-balance
+loss each block returns: ``loss_fn`` adds their sum. Sliding windows: with
+``window``, layer i is local (its mask keeps the last ``window`` positions)
+unless ``window_pattern`` N > 0 and (i + 1) % (N + 1) == 0
+(:meth:`LMConfig.layer_is_local`). The unembedding is the embedding table
+(``tie_embeddings``) or its own ``head.lm_head``.
 
 Parameters (``LM.named_parameters()``): ``embed.table`` (V, d),
-``layers.{i}.attn.{wq,wk,wv,wo}``, ``layers.{i}.mlp.{w_gate,w_up,w_down}``,
-``layers.{i}.ln1``, ``layers.{i}.ln2``, ``head.ln_f``; dense weights (in,
-out), as the reference's (``repro_torch.convert.lm_params_from_jax`` maps
-its stacked tree onto them).
+``layers.{i}.attn.{wq,wk,wv,wo}`` (and ``{bq,bk,bv}``),
+``layers.{i}.mlp.{w_gate,w_up,w_down}`` (no ``w_gate`` for relu2) or
+``layers.{i}.moe.{router,w_gate,w_up,w_down,ws_gate,ws_up,ws_down}``,
+``layers.{i}.ln1``, ``layers.{i}.ln2``, ``head.ln_f`` (and
+``head.lm_head``); dense weights (in, out), as the reference's
+(``repro_torch.convert.lm_params_from_jax`` maps its stacked tree onto
+them).
 
 Decoding runs the blocks one by one with no dither context and no
 autograd, each layer with its own cache: dense (K, V) buffers (B, S_buf,
-KV, hd) or a paged cache (``repro_torch.serve.kvcache``). The cache
+KV, hd), a local layer's a ring of ``min(window, max_len)`` slots, or a
+paged cache (``repro_torch.serve.kvcache``, global layers only). The cache
 dtype is the model's.
 
-The block is gemma's: a GeGLU MLP, no sliding window and no logit
-soft-cap, the lm_head tied to the embedding. Not ported yet: the
-reference's other ``LMConfig`` settings (``act``, ``tie_embeddings``,
-``window``, ``softcap``, ``moe``, ``vlm_patches``) with the archs that set
-them (ROADMAP.md section 1, item 6; ``repro_torch.configs`` refuses those
-archs), and with ``window`` the sliding-window ring buffers; the cache
-specs of the dry run (item 9).
+Not ported yet (ROADMAP.md section 1, item 6): the settings only other
+archs set (``norm``, ``softcap``, ``rope_scaling``, ``vlm_patches``) with
+those archs; the cache specs of the dry run (item 9).
 """
 from __future__ import annotations
 
@@ -43,9 +53,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.dithered import dense
 from repro_torch.core.policy import DitherCtx
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, init_moe, moe_layer
 
 ZOO_TODO = "ROADMAP.md section 1, item 6 (the LM zoo)"
 LAYER_TAG = "L"  # the reference's scan tag: every block's layers share it
@@ -61,8 +73,14 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0  # 0 -> d_model // n_heads
+    act: str = "swiglu"
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    window: Optional[int] = None  # sliding-window size of local layers
+    window_pattern: int = 0  # N -> every (N+1)th layer global; 0 -> none
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
+    moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True  # activation checkpointing per block in training
 
@@ -70,42 +88,85 @@ class LMConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    def layer_is_local(self, i: int) -> bool:
+        """Whether layer ``i`` attends within the window."""
+        if self.window is None:
+            return False
+        if self.window_pattern == 0:
+            return True
+        return (i + 1) % (self.window_pattern + 1) != 0
+
+    def layer_window(self, i: int) -> Optional[int]:
+        return self.window if self.layer_is_local(i) else None
+
     @property
     def param_count(self) -> int:
-        """Total parameters: the blocks, the tied embedding and ln_f."""
+        """Total parameters (the reference's count; the q/k/v biases are
+        not in it)."""
         d, f, V, hd = self.d_model, self.d_ff, self.vocab, self.hd
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
-        per_layer = attn + 3 * d * f + 2 * d
-        return self.n_layers * per_layer + V * d + d
+        if self.moe is None:
+            mlp = (3 if self.act in L.GATED else 2) * d * f
+        else:
+            m = self.moe
+            mlp = 3 * m.n_experts * d * m.d_ff_expert + d * m.n_experts
+            if m.n_shared:
+                mlp += 3 * d * m.d_ff_expert * m.n_shared
+        per_layer = attn + mlp + 2 * d
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters a token meets (MoE: its top_k and the shared
+        experts)."""
+        if self.moe is None:
+            return self.param_count
+        m, d = self.moe, self.d_model
+        dense_total = (self.param_count
+                       - self.n_layers * 3 * m.n_experts * d * m.d_ff_expert)
+        return dense_total + self.n_layers * 3 * m.top_k * d * m.d_ff_expert
 
 
 class Block(nn.Module):
-    """One pre-norm block: x + attn(rms(x)), then + mlp(rms(.))."""
+    """One pre-norm block: x + attn(rms(x)), then + mlp(rms(.)) or
+    + moe(rms(.))."""
 
     def __init__(self, cfg: LMConfig, ini: L.Init):
         super().__init__()
         self.cfg = cfg
         self.attn = L.init_attention(ini, cfg.d_model, cfg.n_heads,
-                                     cfg.n_kv_heads, cfg.hd)
-        self.mlp = L.init_mlp(ini, cfg.d_model, cfg.d_ff)
+                                     cfg.n_kv_heads, cfg.hd, cfg.qkv_bias)
+        if cfg.moe is not None:
+            self.moe = init_moe(ini, cfg.d_model, cfg.moe)
+        else:
+            self.mlp = L.init_mlp(ini, cfg.d_model, cfg.d_ff, cfg.act)
         self.ln1 = ini.ones(cfg.d_model)
         self.ln2 = ini.ones(cfg.d_model)
 
+    def ffn(self, h: torch.Tensor, ctx: Optional[DitherCtx], tag: str):
+        """(y, aux): the MLP's output and None, or the MoE layer's."""
+        cfg = self.cfg
+        if cfg.moe is not None:
+            return moe_layer(self.moe, h, cfg.moe, ctx, name=f"{tag}.moe")
+        return L.mlp(self.mlp, h, cfg.act, ctx=ctx, name=f"{tag}.mlp"), None
+
     def forward(self, x: torch.Tensor, pos_b: torch.Tensor,
-                mask: torch.Tensor, ctx: Optional[DitherCtx]) -> torch.Tensor:
+                mask: torch.Tensor, ctx: Optional[DitherCtx]):
+        """(x, aux) after the block; aux None for an MLP block."""
         cfg = self.cfg
         h = L.rms_norm(x, self.ln1)
         y, _ = L.attention(self.attn, h, pos_b, mask, cfg.n_heads,
                            cfg.n_kv_heads, cfg.hd, cfg.rope_theta, ctx=ctx,
                            name=f"{LAYER_TAG}.attn")
         x = x + y
-        h = L.rms_norm(x, self.ln2)
-        return x + L.mlp(self.mlp, h, ctx=ctx, name=f"{LAYER_TAG}.mlp")
+        y, aux = self.ffn(L.rms_norm(x, self.ln2), ctx, LAYER_TAG)
+        return x + y, aux
 
 
 class LM(nn.Module):
     """The decoder: ``embed``, ``layers`` (a ModuleList of blocks) and
-    ``head`` (the final norm); the unembedding is the tied table."""
+    ``head`` (the final norm, and the unembedding when untied)."""
 
     def __init__(self, cfg: LMConfig, ini: L.Init):
         super().__init__()
@@ -114,6 +175,9 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, ini)
                                     for _ in range(cfg.n_layers))
         self.head = nn.ParameterDict({"ln_f": ini.ones(cfg.d_model)})
+        if not cfg.tie_embeddings:
+            self.head["lm_head"] = ini.normal(cfg.d_model, cfg.vocab,
+                                              stddev=0.02)
 
 
 def init_lm(cfg: LMConfig, *, seed: int = 0,
@@ -145,32 +209,58 @@ def _rerun_marked(block):
     return run
 
 
-def forward(net: LM, tokens: torch.Tensor, *,
-            ctx: Optional[DitherCtx] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) in the model's dtype."""
+def _masks(cfg: LMConfig, pos_b: torch.Tensor):
+    """{window: mask} for the windows the layers use (None: global)."""
+    return {w: L.attention_mask(pos_b, pos_b, window=w)
+            for w in {cfg.layer_window(i) for i in range(cfg.n_layers)}}
+
+
+def _unembed(net: LM, x: torch.Tensor, ctx: Optional[DitherCtx] = None
+             ) -> torch.Tensor:
+    x = L.rms_norm(x, net.head["ln_f"])
+    if net.cfg.tie_embeddings:
+        return L.unembed(net.embed["table"], x, ctx=ctx)
+    return dense(x, net.head["lm_head"], ctx=ctx, name="lm_head")
+
+
+def forward_aux(net: LM, tokens: torch.Tensor, *,
+                ctx: Optional[DitherCtx] = None):
+    """tokens (B, S) -> (logits (B, S, V) in the model's dtype, the blocks'
+    aux loss summed, f32; None for the dense family)."""
     cfg = net.cfg
     x = _embed_inputs(net, tokens)
     B, S = tokens.shape
     pos_b = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    mask = L.attention_mask(pos_b, pos_b)
-    for block in net.layers:
+    masks = _masks(cfg, pos_b)
+    auxs = []
+    for i, block in enumerate(net.layers):
+        mask = masks[cfg.layer_window(i)]
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_rerun_marked(block), x, pos_b, mask, ctx,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_rerun_marked(block), x, pos_b, mask, ctx,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block(x, pos_b, mask, ctx)
-    x = L.rms_norm(x, net.head["ln_f"])
-    return L.unembed(net.embed["table"], x, ctx=ctx)
+            x, aux = block(x, pos_b, mask, ctx)
+        auxs.append(aux)
+    aux = torch.sum(torch.stack(auxs)) if cfg.moe is not None else None
+    return _unembed(net, x, ctx), aux
+
+
+def forward(net: LM, tokens: torch.Tensor, *,
+            ctx: Optional[DitherCtx] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in the model's dtype."""
+    return forward_aux(net, tokens, ctx=ctx)[0]
 
 
 def loss_fn(net: LM, batch: Dict[str, torch.Tensor], *,
             ctx: Optional[DitherCtx] = None) -> torch.Tensor:
-    """Next-token cross-entropy in f32, the mean over every position."""
-    logits = forward(net, batch["tokens"], ctx=ctx).to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
+    """Next-token cross-entropy in f32, the mean over every position, plus
+    the MoE aux loss."""
+    logits, aux = forward_aux(net, batch["tokens"], ctx=ctx)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     labels = batch["labels"]
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    return torch.sum(nll) / math.prod(labels.shape)
+    loss = torch.sum(nll) / math.prod(labels.shape)
+    return loss if aux is None else loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +271,10 @@ Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def cache_buf_len(cfg: LMConfig, i: int, max_len: int) -> int:
-    """Buffer length of layer ``i``'s cache: ``max_len`` (every dense layer
-    is global; windowed layers come with item 6)."""
+    """Buffer length of layer ``i``'s cache: ``min(window, max_len)`` for
+    a local layer (a ring), ``max_len`` for a global one."""
+    if cfg.layer_is_local(i):
+        return min(cfg.window, max_len)
     return max_len
 
 
@@ -213,7 +305,9 @@ def decode_step(net: LM, cache, token: torch.Tensor,
     inactive slot (see ``layers.cached_attention``); ``t_host``, the
     per-slot t on the host, spares a paged cache a device sync. Returns
     (logits (B, 1, V), new cache); dense buffers are new tensors, paged
-    caches are written in place."""
+    caches are written in place. An MoE block routes the B tokens of the
+    step (capacity ``moe.capacity(cfg, B)``), inactive slots' included, as
+    the reference's."""
     cfg = net.cfg
     t = _cache_index(t, token.device)
     x = _embed_inputs(net, token)
@@ -224,19 +318,20 @@ def decode_step(net: LM, cache, token: torch.Tensor,
         y, kv = L.cached_attention(block.attn, h, t, kv, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
                                    t_host=t_host, rope=rope,
+                                   window=cfg.layer_window(i),
                                    name=f"L{i}.attn")
         x = x + y
-        x = x + L.mlp(block.mlp, L.rms_norm(x, block.ln2),
-                      name=f"L{i}.mlp")
+        x = x + block.ffn(L.rms_norm(x, block.ln2), None, f"L{i}")[0]
         new_cache.append(kv)
-    x = L.rms_norm(x, net.head["ln_f"])
-    return L.unembed(net.embed["table"], x), new_cache
+    return _unembed(net, x), new_cache
 
 
 @torch.no_grad()
 def prefill(net: LM, tokens: torch.Tensor, max_len: int):
     """Run the whole prompt (B, S) and build a decode cache of ``max_len``
-    positions. Returns (logits (B, S, V), cache, t = S - 1)."""
+    positions. Returns (logits (B, S, V), cache, t = S - 1). A local
+    layer whose ring is shorter than the prompt keeps the last S_buf
+    positions, position p at slot p mod S_buf."""
     cfg = net.cfg
     B, S = tokens.shape
     if S > max_len:
@@ -244,17 +339,22 @@ def prefill(net: LM, tokens: torch.Tensor, max_len: int):
                          f"max_len {max_len}")
     x = _embed_inputs(net, tokens)
     pos_b = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    mask = L.attention_mask(pos_b, pos_b)
+    masks = _masks(cfg, pos_b)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     for i, (block, (K, V)) in enumerate(zip(net.layers, cache)):
         h = L.rms_norm(x, block.ln1)
-        y, (k, v) = L.attention(block.attn, h, pos_b, mask, cfg.n_heads,
+        y, (k, v) = L.attention(block.attn, h, pos_b,
+                                masks[cfg.layer_window(i)], cfg.n_heads,
                                 cfg.n_kv_heads, cfg.hd, cfg.rope_theta,
                                 name=f"L{i}.attn")
         x = x + y
-        x = x + L.mlp(block.mlp, L.rms_norm(x, block.ln2),
-                      name=f"L{i}.mlp")
-        K[:, :S] = k
-        V[:, :S] = v
-    x = L.rms_norm(x, net.head["ln_f"])
-    return L.unembed(net.embed["table"], x), cache, S - 1
+        x = x + block.ffn(L.rms_norm(x, block.ln2), None, f"L{i}")[0]
+        s_buf = K.shape[1]
+        if s_buf >= S:
+            K[:, :S] = k
+            V[:, :S] = v
+        else:  # the ring: the last s_buf positions, p at slot p % s_buf
+            roll = (S - s_buf) % s_buf
+            K.copy_(torch.roll(k[:, S - s_buf:], roll, dims=1))
+            V.copy_(torch.roll(v[:, S - s_buf:], roll, dims=1))
+    return _unembed(net, x), cache, S - 1

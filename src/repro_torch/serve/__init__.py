@@ -1,4 +1,4 @@
-"""repro_torch.serve: the serving tier for the dense family.
+"""repro_torch.serve: the serving tier for the dense and MoE families.
 
 Counterpart of ``repro.serve``: the chunked-prefill engine
 (``engine.py``), the paged KV cache with codec-encoded pages

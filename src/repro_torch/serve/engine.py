@@ -11,8 +11,10 @@ cache position 0, not 40), and an inactive micro-step is position
 ``t = -1``: its write is dropped and attention masks the slot entirely.
 
 KV storage is either the dense per-slot buffers of ``Model.init_cache``
-(``kv_page=0``) or the paged, codec-quantized pool of
-``repro_torch.serve.kvcache``; admission, page allocation and
+(``kv_page=0``; a windowed layer's buffer is a ring of ``min(window,
+max_len)`` slots) or the paged, codec-quantized pool of
+``repro_torch.serve.kvcache`` (refused for windowed configs, as in the
+reference); admission, page allocation and
 preemption-and-recompute on pool exhaustion live in
 ``repro_torch.serve.scheduler``. A preempted request requeues at the front
 with its generated tokens folded into the replay prompt, so greedy decoding
@@ -107,6 +109,10 @@ class Engine:
         pool = None
         self._max_pages = 0
         if cfg.kv_page > 0:
+            if getattr(model.cfg, "window", None) is not None:
+                raise ValueError(
+                    "paged KV does not cover sliding-window ring buffers "
+                    "yet; use kv_page=0 for windowed configs")
             self._max_pages = kvcache.pages_for(cfg.max_len, cfg.kv_page)
             n_pages = cfg.kv_pool_pages or B * self._max_pages
             pool = PagePool(n_pages, cfg.kv_page)

@@ -601,6 +601,59 @@ def test_gemma_mlp_down_bf16_kernel_dense_matches_plain(cuda, monkeypatch):
     assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
 
 
+@pytest.mark.parametrize("spec", ["ecd,edf->ecf", "ecf,efd->ecd"])
+def test_moe_expert_einsum_kernel_route_matches_plain(cuda, spec, monkeypatch):
+    """moonshot's expert products at batch 8 x seq 128 in bf16 (64 experts,
+    120 slots each, d 2048, f 1408), the kernel variant's batched form: one
+    NSD launch over the (7680, N) cotangent, then a pack and two int8
+    products per expert. Every launch is held to its plain version on the
+    same inputs (k, the bitmaps, tile nnz and masks, the int8 products'
+    f32 outputs: bit for bit), and dx and dW against the op on the plain
+    versions within relative L2 1e-5."""
+    E, C, d, f = 64, 120, 2048, 1408
+    K, N = (d, f) if spec == "ecd,edf->ecf" else (f, d)
+    x = (_rand((E, C, K), cuda, 41)).to(torch.bfloat16).requires_grad_()
+    w = (_rand((E, K, N), cuda, 42) / K ** 0.5).to(torch.bfloat16).requires_grad_()
+    g = (_rand((E, C, N), cuda, 43) * 1e-3).to(torch.bfloat16)
+    ctx = DitherCtx(DitherPolicy(variant="kernel", s=2.0), seed=7, step=3)
+    held = {"nsd_quant": 0, "bitmap_pack": 0, "bsp_matmul_int8": 0}
+
+    def holding(kname, mod, attr):
+        kern, plain = getattr(mod, attr), getattr(mod, attr + "_plain")
+
+        def run(*a, **kw):
+            got = kern(*a, **kw)
+            want = plain(*a, **kw)
+            for u, v in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert (u is None and v is None) or torch.equal(u, v), kname
+            held[kname] += 1
+            return got
+        monkeypatch.setattr(mod, attr, run)
+    holding("nsd_quant", nsd_quant, "nsd_quantize")
+    holding("bitmap_pack", pack, "bitmap_pack_blocked")
+    holding("bsp_matmul_int8", bsp_matmul, "bsp_matmul_int8")
+    before = dict(build.LAUNCHES)
+    dithered.dithered_einsum(spec, x, w, ctx=ctx, name="L.moe.up").backward(g)
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == held == {"nsd_quant": 1, "bitmap_pack": E,
+                                "bsp_matmul_int8": 2 * E}
+    dx, dw = x.grad, w.grad
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    monkeypatch.undo()
+    x.grad = w.grad = None
+    monkeypatch.setattr(nsd_quant, "nsd_quantize", nsd_quant.nsd_quantize_plain)
+    monkeypatch.setattr(pack, "bitmap_pack_blocked", pack.bitmap_pack_blocked_plain)
+    monkeypatch.setattr(bsp_matmul, "bsp_matmul_int8", bsp_matmul.bsp_matmul_int8_plain)
+    before = dict(build.LAUNCHES)
+    dithered.dithered_einsum(spec, x, w, ctx=ctx, name="L.moe.up").backward(g)
+    assert build.LAUNCHES == before
+    for got, want in ((dx, x.grad), (dw, w.grad)):
+        rel = float((got.double() - want.double()).norm() / want.double().norm())
+        assert rel <= 1e-5, rel
+
+
 # ---------------------------------------------------------------------------
 # the quant engine's codecs and encoded optimizer moments on the card
 # ---------------------------------------------------------------------------

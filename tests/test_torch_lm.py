@@ -221,7 +221,7 @@ def test_geglu_mlp_matches_reference():
     x = _np((2, 5, 32), 10)
     got = L.mlp(torch.nn.ParameterDict(
         {k: torch.nn.Parameter(torch.from_numpy(a)) for k, a in p.items()}),
-        torch.from_numpy(x))
+        torch.from_numpy(x), "geglu")
     want = JL.mlp({k: jnp.asarray(a) for k, a in p.items()}, jnp.asarray(x),
                   JL.MLPConfig(32, 64, "geglu"))
     _close(got.detach(), want)

@@ -649,7 +649,7 @@ def test_launcher_serves_on_the_cpu_with_a_run_dir(tmp_path, capsys):
     assert sum(r["gen_tokens"] for r in rows) == 15
     assert "monitor" not in streams  # a healthy run trips nothing
     with pytest.raises(NotImplementedError, match="item 6"):
-        launch_serve.main(["--arch", "qwen2.5-32b", "--device", "cpu"])
+        launch_serve.main(["--arch", "mamba2-370m", "--device", "cpu"])
 
 
 def test_launcher_raises_without_a_gpu(monkeypatch):
