@@ -82,8 +82,8 @@ Phases (any failure exits non-zero and prints no result):
      accuracies within 10 points of the same run's baseline; AlexNet's and
      VGG11's, whose 50-step accuracy spreads over tens of points from seed
      to seed (in the reference too), as the mean over ``TABLE1_SEEDS``
-     (this run's seed 0 and further trainings at the other seeds) at most
-     10 points under the reference's mean over its 24 seeds on the CPU
+     (this run's seed 0 and further trainings at seeds 1-23) at most 10
+     points under the reference's mean over the same 24 seeds on the CPU
      (``src/repro_torch/bench/baselines/table1_cifar_reference.json``, made
      by ``tests/table1_cifar_rows.py``);
   4h. the classifier trainer repeats: AlexNet-CIFAR at seed 0, Table 1's
@@ -293,7 +293,31 @@ Phases (any failure exits non-zero and prints no result):
          batch 1, chunk 1, its tokens equal to a token-by-token decode
          from an empty cache; the five archs' smoke presets through the
          serve launcher;
-  13. print one JSON line naming the seven kernels (the NSD row carries its
+  13. the VLM, SSM and hybrid families at full width and depth, batch 8 x
+     seq 128 zipf tokens, bf16, AdamW, each config's own remat, the
+     program of phase 12, each through the launcher (``--preset full``, 4
+     steps): finite losses and gradient norms, the launches a kernel step
+     that the blocks imply, every int8 product's K <= 133,144, no
+     fallback; host ms a step, peak device memory, a device-only profile
+     of one kernel step with the int8 products' device time beside their
+     bound (operations on the live 128 x 128 tiles at 1,979 TOP/s), 12b's
+     gradient check on the first kernel step (every gradient finite):
+     13a. mamba2-370m (48 blocks, no remat): 96 NSD and 192 int8 a kernel
+         step; the chunked SSD scan's device time a step and its share;
+     13b. hymba-1.5b (32 blocks, 128 meta tokens, 29 local layers): 288 and
+         576 (attention 4, the mixer 2, the MLP 3 a block); the SSD scan;
+     13c. internvl2-2b (24 blocks and the projector, 256 patch embeddings
+         ahead of the 128 text positions): 170 and 339 (``vit_proj1``'s dx
+         skipped);
+     13d. serving: each arch at full width through the serve launcher (8
+         requests of 4 + 16 tokens: tokens a second, the median tick, the
+         hybrid's meta bootstrap), internvl2-2b on dense buffers and on nsd
+         pages of 16 (the launches that its 24 layers' pages imply); each
+         smoke model and a 4-layer hybrid whose prompts run past its
+         window of 8 in the engine, its tokens equal to
+         ``greedy_generate``'s; the three smoke presets through the serve
+         launcher;
+  14. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
      paged expand of phase 10b under ``serve_pages``, the pack row its
@@ -301,9 +325,9 @@ Phases (any failure exits non-zero and prints no result):
      ``moe_expert_slice``, by arch;
      phase 5's log gives the NSD row's bound by the padded definition too,
      9 bytes a padded element; every row's ``launches_by_path`` gives its
-     launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11 and
-     12);
-  14. print the JSON result line last.
+     launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11, 12
+     and 13);
+  15. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -369,10 +393,10 @@ TABLE1_ACC_BAND = 10.0  # points; Table 1's accuracy gate
 # One 50-step row of either is mostly seed noise: the reference's own AlexNet
 # on the CPU has a dithered or int8 accuracy more than 10 points under its
 # plain run at 10 of its 24 seeds. A seed's accuracy in one package says
-# nothing of the other's at that seed (correlation ~0), and the same tree
-# gives other rows run to run on the card, so the card takes more seeds to
-# shrink its own sampling error
-TABLE1_SEEDS = tuple(range(48))
+# nothing of the other's at that seed (correlation ~0). The card's rows
+# repeat run to run (deterministic cuDNN, phase 4h), so it takes the
+# reference's own seeds 0-23
+TABLE1_SEEDS = tuple(range(24))
 REPEAT_STEPS = 50  # phase 4h: two trainings a setting, Table 1's recipe
 TABLE1_REFERENCE_SEEDS = 24
 TABLE1_MEAN_MODELS = ("alexnet-c10", "vgg11-c10")
@@ -481,22 +505,41 @@ ZOO_SERVE_REQUESTS, ZOO_SERVE_NEW = 8, 16
 ZOO_ARCHS = ("gemma3-4b", "qwen2.5-32b", "minitron-8b", "moonshot-v1-16b-a3b",
              "dbrx-132b")
 
+# phase 13: the VLM, SSM and hybrid families at full width and depth, batch
+# 8 x seq 128 (internvl2-2b's 256 patch embeddings come on top), the kernel
+# program from step 1, each config's own remat; (label, arch, blocks)
+FAMILY_RUNS = (("13a", "mamba2-370m", 48), ("13b", "hymba-1.5b", 32),
+               ("13c", "internvl2-2b", 24))
+FAMILY_STEPS = 4
+FAMILY_SERVE_SPEC = "worker {}: batch=8;max_len=128;chunk=8{}"
+FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW = 8, 16
+
 
 def zoo_kernel_step(cfg) -> dict:
     """The launches of one kernel step (lm_head off) of an LM config: per
     block one NSD per dithered dense (attention 4; an MLP's 3 gated or 2;
-    an MoE block's router and shared experts) and per expert einsum (3),
-    one pack per expert slice of each expert einsum, and two int8
-    products per dense and per expert slice (every input needs dx)."""
-    if cfg.moe is None:
-        dense = 4 + (3 if cfg.act in ("swiglu", "geglu") else 2)
-        einsums = slices = 0
+    an MoE block's router and shared experts; a Mamba-2 mixer's in and out
+    projections, 2) and per expert einsum (3), one pack per expert slice
+    of each expert einsum, and two int8 products per dense and per expert
+    slice (every input needs dx); the VLM's projector adds two NSD and
+    three int8 products (``vit_proj1``'s dx is skipped: the patch
+    embeddings need no gradient)."""
+    mlp = 3 if getattr(cfg, "act", None) in ("swiglu", "geglu") else 2
+    einsums = slices = extra_nsd = extra_int8 = 0
+    if not hasattr(cfg, "n_heads"):  # the SSM LM: the mixer alone
+        dense = 2
+    elif hasattr(cfg, "n_meta_tokens"):  # the hybrid: attention, mixer, MLP
+        dense = 4 + 2 + mlp
+    elif cfg.moe is None:
+        dense = 4 + mlp
+        if cfg.vlm_patches:
+            extra_nsd, extra_int8 = 2, 3
     else:
         dense = 4 + 1 + (3 if cfg.moe.n_shared else 0)
         einsums, slices = 3, 3 * cfg.moe.n_experts
     n = cfg.n_layers
-    out = {"nsd_quant": n * (dense + einsums),
-           "bsp_matmul_int8": 2 * n * (dense + slices)}
+    out = {"nsd_quant": n * (dense + einsums) + extra_nsd,
+           "bsp_matmul_int8": 2 * n * (dense + slices) + extra_int8}
     if slices:
         out["bitmap_pack"] = n * slices
     return out
@@ -541,16 +584,21 @@ def f32_band(K: int) -> float:
 
 
 def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
-                 what=f"forward+backward of one batch-{BATCH} step"):
+                 what=f"forward+backward of one batch-{BATCH} step", host=True):
     """Print the device time per step of the top kernels, of the port's
     kernels, and the device's busy share of the wall time, from
     torch.profiler over ``steps`` forward+backward passes. Informational:
-    where the profiler records no device time it says so and moves on."""
+    where the profiler records no device time it says so and returns None;
+    else it returns the device rows (ms a step, launches a step, kernel
+    name) and the wall ms a step. ``host=False`` traces the device alone
+    (no host rows: the trace of a step of tens of thousands of launches
+    is read several times faster)."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    acts = [ProfilerActivity.CPU] if host else []
+    with profile(activities=acts + [ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -573,7 +621,7 @@ def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
     if not rows:
         log(f"phase {phase} ({label}): torch.profiler recorded no device time: "
             f"not measured")
-        return
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"phase {phase} ({label}): {what}: wall "
@@ -592,6 +640,8 @@ def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
         log(f"  port kernel {name}: {ms:.4f} ms device time per step over {n} launches")
     for ms, n, key in rows[:15]:
         log(f"  {ms:9.4f} ms  x{n:<4d} {key[:100]}")
+    if not host:
+        return rows, wall_ms
     # the host side: self CPU time of the recorded (aten) ops; the rest of
     # the wall is Python, ctypes launches and the profiler's own cost
     host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
@@ -602,6 +652,7 @@ def profile_step(torch, step_fn, card, label, steps=3, phase="5b",
         f"{sum(h[1] for h in host)} recorded ops, under the profiler")
     for ms, n, key in host[:8]:
         log(f"  host {ms:9.4f} ms  x{n:<4d} {key[:80]}")
+    return rows, wall_ms
 
 
 def nonzero(launches):
@@ -1866,35 +1917,20 @@ def phase11(torch, card, dev, plain_kernels):
     return path_launches
 
 
-def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
-            same, time_ms, graph_ms):
-    """Phase 12: the rest of the LM zoo. 12a gemma3-4b at full width and
-    depth through the launcher, 12b its first kernel step's gradients
-    against the plain versions, 12c moonshot-v1-16b-a3b cut to 4 blocks
-    (the pack kernel on the MoE path), 12d qwen2.5-32b and minitron-8b cut
-    to 2 blocks and dbrx-132b's smoke preset, 12e serving. Returns the
-    launches of each run by kernel, for the kernels line, and the pack's
-    figures at the expert-slice shape."""
-    import dataclasses
+def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
+    """The LM runs of phases 12 and 13: ``run`` drives a trainer with every
+    step timed and its launches, the int8 products' K and the packs' masks
+    recorded; ``grad_check`` holds a trainer's first kernel step against
+    the plain versions; ``release`` frees the card. Launches are checked
+    against :func:`zoo_kernel_step`."""
     import gc
+    import types
 
-    import numpy as np
-
-    from repro_torch.configs import get_model, get_smoke_model
-    from repro_torch.core.policy import DitherPolicy
-    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
     from repro_torch.kernels import build, ops
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as lm_train
-    from repro_torch.launch.program import merge_legacy_flags
-    from repro_torch.models.api import lm_model
     from repro_torch.obs import metrics
-    from repro_torch.optim.optimizers import OptConfig
-    from repro_torch.serve import Engine, Request, ServeConfig, greedy_generate
-    from repro_torch.serve import engine as engine_mod
     from repro_torch.train import trainer as trainer_mod
 
-    t_phase = time.perf_counter()
     steps_seen, ks = [], []
 
     def n_blocks(n):
@@ -1913,6 +1949,9 @@ def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
                            float(out["loss"]),
                            {k: v - before[k] for k, v in build.LAUNCHES.items()
                             if v != before[k]}))
+        if "grad_norm" in out:  # the global norm of the step's gradients
+            check(math.isfinite(float(out["grad_norm"])),
+                  f"step {step}: gradient norm {float(out['grad_norm'])}")
         return out
 
     def recording_int8(a, b, scale, mask, *, trans_a=False, trans_b=False):
@@ -1998,9 +2037,8 @@ def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
         torch.cuda.empty_cache()
         prog = trainer.program
         trainer.program = prog.replace(base=prog.base.replace(collect_stats=True))
-        tcfg = TokenStreamConfig(vocab=trainer.model.cfg.vocab, seq_len=ZOO_SEQ,
-                                 batch=ZOO_BATCH)
-        batch = token_batch(tcfg, ZOO_FIRST_KERNEL_STEP, device=dev)
+        batch = lm_train.batch_fn_for(trainer.model, ZOO_BATCH, ZOO_SEQ, dev)(
+            ZOO_FIRST_KERNEL_STEP)
         build.reset_launches()
         loss_k, grads_k, sp_k = step_grads(trainer, batch, ZOO_FIRST_KERNEL_STEP)
         launched = nonzero(build.LAUNCHES)
@@ -2013,19 +2051,59 @@ def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
             check(not any(build.LAUNCHES.values()),
                   f"{label}: the plain run launched a kernel")
         plain_s = time.perf_counter() - t0
+        for n, g in list(grads_k.items()) + list(grads_p.items()):
+            check(bool(torch.isfinite(g).all()), f"{label}: {n}'s gradient is not finite")
         worst = worst_rel(grads_k, grads_p, f"{label} {trainer.model.cfg.name}")
         check(abs(sp_k - sp_p) <= SPARSITY_BAND,
               f"{label}: sparsity {sp_k} vs plain {sp_p}")
         log(f"phase {label}: {trainer.model.cfg.name} step "
             f"{ZOO_FIRST_KERNEL_STEP} loss {loss_k:.6f} (plain {loss_p:.6f}); worst "
             f"relative L2 gradient difference kernel vs plain {worst} over "
-            f"{len(grads_k)} parameters; dither sparsity {sp_k:.3f}% (plain "
-            f"{sp_p:.3f}%); the plain step {plain_s:.1f} s")
+            f"{len(grads_k)} parameters, every gradient finite; dither sparsity "
+            f"{sp_k:.3f}% (plain {sp_p:.3f}%); the plain step {plain_s:.1f} s")
+        return worst, sp_k
 
     def release(*objs):
         del objs
         gc.collect()
         torch.cuda.empty_cache()
+
+
+    return types.SimpleNamespace(run=run, grad_check=grad_check, release=release,
+                                 n_blocks=n_blocks, steps_seen=steps_seen,
+                                 packs=packs)
+
+
+def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
+            same, time_ms, graph_ms):
+    """Phase 12: the rest of the LM zoo. 12a gemma3-4b at full width and
+    depth through the launcher, 12b its first kernel step's gradients
+    against the plain versions, 12c moonshot-v1-16b-a3b cut to 4 blocks
+    (the pack kernel on the MoE path), 12d qwen2.5-32b and minitron-8b cut
+    to 2 blocks and dbrx-132b's smoke preset, 12e serving. Returns the
+    launches of each run by kernel, for the kernels line, and the pack's
+    figures at the expert-slice shape."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_model, get_smoke_model
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.program import merge_legacy_flags
+    from repro_torch.models.api import lm_model
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.serve import Engine, Request, ServeConfig, greedy_generate
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    h = lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel)
+    run, grad_check, release, n_blocks = h.run, h.grad_check, h.release, h.n_blocks
+    steps_seen, packs = h.steps_seen, h.packs
 
     base = DitherPolicy(variant="paper", s=2.0)  # the launcher's defaults
 
@@ -2233,6 +2311,261 @@ def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
         f"{', '.join(ZOO_ARCHS)} (--preset smoke)")
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({card})")
     return paths, pack_slices
+
+def phase13(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
+    """Phase 13: the VLM, SSM and hybrid families. 13a mamba2-370m, 13b
+    hymba-1.5b and 13c internvl2-2b at full width and depth through the
+    launcher (the launches of a kernel step, the int8 products' K, no
+    fallback, finite losses and gradient norms, host ms a step, peak
+    memory, a profile of one kernel step with the int8 products' device
+    time beside their bound and the SSD scan's share, the first kernel
+    step's gradients against the plain versions); 13d serving: each arch
+    at full width through the serve launcher (internvl2-2b on dense
+    buffers and on nsd pages of 16), each smoke model and a 4-layer hybrid
+    whose prompts run past its window in the engine against
+    ``greedy_generate``. Returns the launches of each run by kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_model, get_smoke_model
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import hybrid as hybrid_mod
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models.api import hybrid_model
+    from repro_torch.serve import Engine, Request, ServeConfig, greedy_generate
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import kvcache
+
+    t_phase = time.perf_counter()
+    h = lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel)
+    paths = {}
+    products = []  # (live tiles, the other operand's padded width) a call
+
+    def counting_int8(a, b, scale, mask, *, trans_a=False, trans_b=False):
+        products.append(((mask != 0).sum(), b.shape[1] if trans_a else b.shape[0]))
+        return kernel["bsp_matmul_int8"](a, b, scale, mask, trans_a=trans_a,
+                                         trans_b=trans_b)
+
+    def ssd_ms(cfg, batch, seq):
+        """One chunked SSD scan, forward and backward, at a mixer's shapes
+        (x, B and C in the model's dtype, dt f32): (CUDA-event ms, device
+        ms from torch.profiler, device kernels launched) a call."""
+        from torch.profiler import ProfilerActivity, profile
+        c = cfg.ssm
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def rnd(*shape, dtype=cfg.dtype, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev) * scale).to(
+                dtype).requires_grad_()
+        x = rnd(batch, seq, c.n_heads, c.head_dim)
+        dt = (torch.rand(batch, seq, c.n_heads, generator=g, device=dev) * 0.1
+              ).requires_grad_()
+        A = -torch.linspace(1.0, 16.0, c.n_heads, device=dev)
+        Bm, Cm = (rnd(batch, seq, c.n_groups, c.d_state) for _ in range(2))
+        cot = torch.randn(batch, seq, c.n_heads, c.head_dim, generator=g, device=dev)
+
+        def once():
+            y, _ = mamba_mod._ssd_chunked(x, dt, A, Bm, Cm, c)
+            torch.autograd.grad(y, (x, dt, Bm, Cm), cot)
+        once()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(5):
+            once()
+        e1.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                once()
+            torch.cuda.synchronize()
+        dev_rows = [e for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in dev_rows)
+        return (e0.elapsed_time(e1) / 5, dev_us / 1e3 / 3,
+                sum(e.count for e in dev_rows) // 3)
+
+    for label, arch, blocks in FAMILY_RUNS:
+        argv = ["--arch", arch, "--preset", "full", "--batch", str(ZOO_BATCH),
+                "--seq", str(ZOO_SEQ), "--steps", str(FAMILY_STEPS), "--program",
+                ZOO_PROGRAM]
+        log(f"phase {label}: python -m repro_torch.launch.train {' '.join(argv)}")
+        trainer, total, peak = h.run(label, lambda: lm_train.main(argv))
+        model, cfg = trainer.model, trainer.model.cfg
+        check(cfg == get_model(arch).cfg and cfg.n_layers == blocks
+              and all(p.dtype == torch.bfloat16 for p in trainer.net.parameters()),
+              f"{label}: not {arch}'s full configuration in bf16")
+        check(len(h.steps_seen) == FAMILY_STEPS, f"{label}: {len(h.steps_seen)} steps")
+        ms = [m for _, m, _, _ in h.steps_seen]
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        log(f"phase {label}: {arch} {n_params} parameters (the reference's count "
+            f"{model.param_count}), remat {cfg.remat}; AdamW moments f32; off "
+            f"step 0 {ms[0]:.3f} ms (first-use costs), kernel steps "
+            f"{min(ms[2:]):.3f}-{max(ms[2:]):.3f} ms (step 1 {ms[1]:.3f} ms); "
+            f"launches over the run {nonzero(total)}, "
+            f"{zoo_kernel_step(cfg)} a kernel step; peak device memory "
+            f"{peak / 2**30:.2f} GiB ({card})")
+        paths[f"{arch} kernel {FAMILY_STEPS} steps ({ZOO_FIRST_KERNEL_STEP} off)"] = total
+        batch = lm_train.batch_fn_for(model, ZOO_BATCH, ZOO_SEQ, dev)(
+            ZOO_FIRST_KERNEL_STEP)
+        tokens = int(batch["tokens"].numel()) + (
+            ZOO_BATCH * cfg.vlm_patches if "patch_embeds" in batch else 0)
+        products.clear()
+        with swapped({"bsp_matmul_int8": counting_int8}):
+            prof = profile_step(
+                torch, lambda: trainer.train_step(batch, ZOO_FIRST_KERNEL_STEP),
+                card, f"{arch} kernel step", steps=1, phase=label,
+                what=f"one {arch} training step, variant=kernel ({ZOO_BATCH} x "
+                     f"{tokens // ZOO_BATCH} positions, bf16, AdamW)", host=False)
+        # the warm-up step and the profiled one: the same products
+        ops_step = sum(2 * int(n) * 128 * 128 * w for n, w in products) / 2
+        bound = ops_step / INT8_OPS_PER_S * 1e3
+        if prof is not None:
+            rows, wall = prof
+            int8_ms = sum(r[0] for r in rows if "bsp_int8_kernel" in r[2])
+            busy = sum(r[0] for r in rows)
+            log(f"phase {label}: the int8 products of a kernel step: "
+                f"{int8_ms:.3f} ms of device time over {len(products) // 2} "
+                f"products, bound {bound:.3f} ms ({ops_step:.4g} operations on "
+                f"the live 128 x 128 tiles at {INT8_OPS_PER_S / 1e12:.0f} TOP/s; "
+                f"{100 * bound / int8_ms:.1f}% of peak) ({card})")
+        else:
+            busy = wall = None
+            log(f"phase {label}: the int8 products' device time not measured; "
+                f"bound {bound:.3f} ms ({card})")
+        if hasattr(cfg, "ssm"):
+            n_mixers = cfg.n_layers
+            seq = ZOO_SEQ + getattr(cfg, "n_meta_tokens", 0)
+            ev, one, n_k = ssd_ms(cfg, ZOO_BATCH, seq)
+            share = (f"{100 * n_mixers * one / busy:.1f}% of the profiled step's "
+                     f"{busy:.3f} ms of device time" if busy
+                     else "the step's share not measured")
+            log(f"phase {label}: the chunked SSD scan (its einsums, exps and "
+                f"cumsum), forward and backward at {ZOO_BATCH} x {seq} positions, "
+                f"{cfg.ssm.n_heads} heads, chunk {min(cfg.ssm.chunk, seq)}: "
+                f"{one:.3f} ms of device time a mixer over {n_k} kernels "
+                f"({ev:.3f} ms of CUDA-event time, host-bound), {n_mixers * one:.3f} "
+                f"ms for the {n_mixers} mixers of a step: {share} ({card})")
+        h.grad_check(trainer, label)
+        h.release(trainer)
+        trainer = None
+
+    # -- 13d: serving ------------------------------------------------------
+    real_tick, real_run = engine_mod.Engine.step, engine_mod.Engine._run_chunk
+    real_seal = kvcache.PagedKV._seal
+    real_boot = hybrid_mod.bootstrap_cache
+    seen = {}
+
+    def timed_boot(net, batch, max_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_boot(net, batch, max_len)
+        torch.cuda.synchronize()
+        seen["boot"] = time.perf_counter() - t0
+        return out
+
+    def timed_tick(self):
+        t0 = time.perf_counter()
+        real_tick(self)
+        seen["ticks"].append((time.perf_counter() - t0) * 1e3)
+
+    def counted_run(self, tok_block, n_feed, pos0):
+        seen["micro"] += tok_block.shape[1]
+        return real_run(self, tok_block, n_feed, pos0)
+
+    def counted_seal(self, rows):
+        if self.key == kvcache.layer_key(0):
+            seen["seals"] += len(rows)
+        return real_seal(self, rows)
+
+    for arch, kv in (("mamba2-370m", ""), ("hymba-1.5b", ""), ("internvl2-2b", ""),
+                     ("internvl2-2b", ";kv=nsd;page=16")):
+        argv = ["--preset", "full", "--serve", FAMILY_SERVE_SPEC.format(arch, kv),
+                "--requests", str(FAMILY_SERVE_REQUESTS), "--new-tokens",
+                str(FAMILY_SERVE_NEW)]
+        seen.update(ticks=[], micro=0, seals=0, boot=None)
+        ops.KERNEL_FALLBACKS.clear()
+        build.reset_launches()
+        engine_mod.Engine.step, engine_mod.Engine._run_chunk = timed_tick, counted_run
+        kvcache.PagedKV._seal, hybrid_mod.bootstrap_cache = counted_seal, timed_boot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            sup = launch_serve.main(argv)
+        finally:
+            engine_mod.Engine.step, engine_mod.Engine._run_chunk = real_tick, real_run
+            kvcache.PagedKV._seal, hybrid_mod.bootstrap_cache = real_seal, real_boot
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        w = sup.workers[arch]
+        launched = nonzero(build.LAUNCHES)
+        check(sorted(w.results) == list(range(FAMILY_SERVE_REQUESTS))
+              and all(len(v) == FAMILY_SERVE_NEW for v in w.results.values()),
+              f"13d {arch}{kv}: served {sorted(w.results)}")
+        check(not ops.KERNEL_FALLBACKS, f"13d {arch}{kv}: fallbacks {ops.KERNEL_FALLBACKS}")
+        want = {}
+        if "nsd" in kv:
+            n = w.model.cfg.n_layers
+            enc = n + 2 * n * seen["seals"]
+            want = {"nsd_quant": enc, "levels_compact": enc,
+                    "levels_expand": 2 * n * seen["micro"]}
+            paths[f"{arch} serve{kv.replace(';', ' ')} {FAMILY_SERVE_REQUESTS} "
+                  f"requests"] = dict(build.LAUNCHES)
+        check(launched == want, f"13d {arch}{kv}: launches {launched}, want {want}")
+        rest = sorted(seen["ticks"][1:])
+        log(f"phase 13d: python -m repro_torch.launch.serve {' '.join(argv)}: "
+            f"{len(w.results)}/{FAMILY_SERVE_REQUESTS} requests, {w.engine._tick} "
+            f"ticks, {seen['micro']} micro-steps, {seen['seals']} pages sealed a "
+            f"layer, launches {launched} (want {want}), no fallback; "
+            f"{FAMILY_SERVE_REQUESTS * FAMILY_SERVE_NEW / seconds:.2f} tokens/s over "
+            f"{seconds:.2f} s (the model's build included"
+            + (f"; the engine's meta bootstrap {seen['boot']:.2f} s" if seen["boot"]
+               else "") + f"); the first tick {seen['ticks'][0]:.3f} ms, the other "
+            f"{len(rest)} median {statistics.median(rest):.3f} ms ({card})")
+        h.release(sup, w)
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, size=n) for n in (11, 9, 13, 10)]
+    hy_smoke = get_smoke_model("hymba-1.5b")
+    local4 = hybrid_model(dataclasses.replace(hy_smoke.cfg, name="hymba-4-layer",
+                                              n_layers=4))
+    check([local4.cfg.layer_is_local(i) for i in range(4)] == [False, True, False, False],
+          "13d: the 4-layer hybrid's layer 1 is not local")
+    for m, kv in ((get_smoke_model("mamba2-370m"), ""), (hy_smoke, ""), (local4, ""),
+                  (get_smoke_model("internvl2-2b"), ""),
+                  (get_smoke_model("internvl2-2b"), "fp32 pages")):
+        net = m.init(0, dev)
+        scfg = ServeConfig(max_batch=4, max_len=64, chunk=8,
+                           kv_page=16 if kv else 0)
+        eng = Engine(m, net, scfg)
+        for i, p in enumerate(prompts):
+            check(eng.submit(Request(uid=i, prompt=p, max_new_tokens=16)),
+                  f"13d {m.name}: request {i} refused")
+        done = eng.run(max_ticks=400)
+        check(sorted(done) == list(range(len(prompts))), f"13d {m.name}: {sorted(done)}")
+        ref = [greedy_generate(m, net, p, 16, max_len=64) for p in prompts]
+        check([done[i] for i in range(len(prompts))] == ref,
+              f"13d {m.name} {kv}: the engine's tokens differ from greedy_generate's")
+        window = getattr(m.cfg, "window", None)
+        log(f"phase 13d: {m.name} in the engine (batch 4, chunk 8, {kv or 'dense state'}, "
+            f"prompts of {[len(p) for p in prompts]} tokens + 16, window {window}"
+            f"{', meta tokens %d' % m.cfg.n_meta_tokens if hasattr(m.cfg, 'n_meta_tokens') else ''}): "
+            f"every request's tokens equal greedy_generate's")
+        h.release(net, eng)
+    for arch in ("mamba2-370m", "hymba-1.5b", "internvl2-2b"):
+        sup = launch_serve.main(["--arch", arch, "--requests", "3",
+                                 "--new-tokens", "8", "--max-len", "64"])
+        n_done = sum(x.finished for x in sup.health())
+        check(n_done == 3, f"13d {arch}: served {n_done}/3")
+        h.release(sup)
+    log("phase 13d: the serve launcher served 3/3 requests for each of "
+        "mamba2-370m, hymba-1.5b, internvl2-2b (--preset smoke)")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return paths
+
 
 
 def main() -> int:
@@ -3429,7 +3762,14 @@ def main() -> int:
                            "expert-slice shapes under moe_expert_slice, by arch")
             row["moe_expert_slice"] = pack_slices
 
-    # -- phases 13 and 14 --------------------------------------------------
+    # -- phase 13: the VLM, SSM and hybrid families --------------------------
+    family_launches = phase13(torch, card, dev, plain_kernels, swapped, kernel,
+                              worst_rel)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in family_launches.items()})
+
+    # -- phases 14 and 15 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

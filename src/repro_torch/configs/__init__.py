@@ -2,10 +2,11 @@
 LM architecture registry (``--arch <id>`` of ``repro_torch.launch.train``).
 
 Counterpart of ``repro.configs``; the registry holds the archs the port has:
-the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b) and MoE
-(moonshot-v1-16b-a3b, dbrx-132b) families. The reference's other four
-(``NOT_PORTED``: the VLM, SSM, hybrid and audio archs) raise
-``NotImplementedError`` naming ROADMAP.md section 1, item 6."""
+the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b), MoE
+(moonshot-v1-16b-a3b, dbrx-132b), VLM (internvl2-2b), SSM (mamba2-370m)
+and hybrid (hymba-1.5b) families. The reference's audio arch
+(``NOT_PORTED``: whisper-small) raises ``NotImplementedError`` naming
+ROADMAP.md section 1, item 6."""
 from __future__ import annotations
 
 import importlib
@@ -20,10 +21,13 @@ _MODULES: Dict[str, str] = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
 }
 
 ARCH_IDS = tuple(_MODULES)
-NOT_PORTED = ("hymba-1.5b", "mamba2-370m", "internvl2-2b", "whisper-small")
+NOT_PORTED = ("whisper-small",)
 
 
 def _module(arch_id: str):

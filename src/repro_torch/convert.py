@@ -11,11 +11,15 @@ nested, ``{"embed": {"table"}, "layers": {...}, "head": {"ln_f"}}``, its
 blocks stacked along a leading (n_layers, ...) axis for the scan; the port's
 ``LM`` has one block per layer, ``layers.{i}.attn.wq`` and so on. Dense
 weights keep the (in, out) layout, so no array is transposed. The names
-are the reference's keys joined by dots, so every tree of the dense and MoE
-families maps by name alone: the q/k/v biases (``attn.bq``, ``.bk``,
-``.bv``), the untied ``head.lm_head``, relu2's MLP without ``w_gate``, and
-the MoE block's ``moe.router``, ``moe.w_gate`` / ``w_up`` / ``w_down`` (E,
-d, f) and shared experts ``moe.ws_*``.
+are the reference's keys joined by dots, so every tree of the dense, MoE,
+VLM, SSM and hybrid families maps by name alone: the q/k/v biases
+(``attn.bq``, ``.bk``, ``.bv``), the untied ``head.lm_head``, relu2's MLP
+without ``w_gate``, the MoE block's ``moe.router``, ``moe.w_gate`` /
+``w_up`` / ``w_down`` (E, d, f) and shared experts ``moe.ws_*``, the VLM's
+``head.vit_proj1`` / ``vit_proj2``, the stacked layers' nested ``mixer``
+(the Mamba-2 mixer, its conv weight (d_conv, conv_dim) as the reference
+lays it out), ``attn`` and ``mlp`` subtrees, and the hybrid's
+``head.meta_tokens``.
 """
 from __future__ import annotations
 

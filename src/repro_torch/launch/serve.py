@@ -16,12 +16,14 @@ exports the ``serve`` stream's rows and the monitor events through the run
 log. ``--arch`` (with ``--max-len``) builds a one-worker spec. The
 parameters are the model's seed-0 draw (``Model.init(0, device)``).
 
-Archs: the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b) and MoE
-(moonshot-v1-16b-a3b, dbrx-132b) families; a windowed config (gemma3-4b)
-takes dense buffers (``page=0``, the default), its local layers' rings of
-``min(window, max_len)`` slots. Runs on CUDA unless ``--device cpu``. The
-reference's archs that the port lacks are refused, naming ROADMAP.md
-section 1, item 6.
+Archs: the dense (gemma-2b, gemma3-4b, qwen2.5-32b, minitron-8b), MoE
+(moonshot-v1-16b-a3b, dbrx-132b), VLM (internvl2-2b, served on text as the
+reference's engine serves it), SSM (mamba2-370m) and hybrid (hymba-1.5b)
+families; a windowed config (gemma3-4b, hymba-1.5b) and the SSM's
+per-layer states take dense buffers (``page=0``, the default), a local
+layer's ring of ``min(window, max_len)`` slots (hymba: behind its pinned
+meta slots). Runs on CUDA unless ``--device cpu``. The reference's
+whisper-small is refused, naming ROADMAP.md section 1, item 6.
 """
 from __future__ import annotations
 

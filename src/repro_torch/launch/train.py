@@ -5,11 +5,14 @@
         --program "dither: phase@0=off;phase@1=kernel;rule lm_head:off"
 
 Counterpart of ``repro.launch.train``. Archs: gemma-2b, gemma3-4b,
-qwen2.5-32b, minitron-8b (dense), moonshot-v1-16b-a3b and dbrx-132b (MoE);
-the reference's other four are refused, naming ROADMAP.md section 1, item
-6. Presets: ``smoke``, the arch's reduced f32 configuration (CPU-sized);
-``full``, its published widths (bf16, remat per block; gemma-2b and
-gemma3-4b fit one 80 GB card with AdamW, the others' state does not: a
+qwen2.5-32b, minitron-8b (dense), moonshot-v1-16b-a3b and dbrx-132b (MoE),
+internvl2-2b (VLM: each batch carries 256 patch embeddings ahead of its
+``--seq`` tokens), mamba2-370m (SSM) and hymba-1.5b (hybrid); the
+reference's whisper-small is refused, naming ROADMAP.md section 1, item 6.
+Presets: ``smoke``, the arch's reduced f32 configuration (CPU-sized);
+``full``, its published widths (bf16, remat per block where the config
+asks; gemma-2b, gemma3-4b, internvl2-2b, mamba2-370m and hymba-1.5b fit
+one 80 GB card with AdamW, the others' state does not: a
 depth-cut run builds ``dataclasses.replace(cfg, n_layers=...)`` and drives
 ``repro_torch.train.Trainer``, as ``chip_smoke.py`` does). The dither
 comes from ``--dither``/``--s`` as the base policy, and the ``dither:``
@@ -42,6 +45,9 @@ from __future__ import annotations
 import argparse
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
+import torch
+
 from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_model,
                                  get_smoke_model)
 from repro_torch.core.policy import DitherPolicy
@@ -56,12 +62,24 @@ log = get_logger("repro_torch.train")
 
 
 def batch_fn_for(model, batch: int, seq: int, device):
-    """Step -> the synthetic token batch of that step (the dense and MoE
-    families: tokens and labels)."""
-    if model.family not in ("dense", "moe"):
+    """Step -> the synthetic token batch of that step: tokens and labels
+    (batch, seq), and for the VLM ``patch_embeds`` (batch, vlm_patches,
+    vit_dim) f32, normal(0, 1) from ``np.random.default_rng(step)``, as the
+    reference's (the visual prefix comes on top of the ``seq`` text
+    positions)."""
+    if model.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"batch_fn_for: family {model.family!r}")
-    tcfg = TokenStreamConfig(vocab=model.cfg.vocab, seq_len=seq, batch=batch)
-    return lambda step: token_batch(tcfg, step, device=device)
+    cfg = model.cfg
+    tcfg = TokenStreamConfig(vocab=cfg.vocab, seq_len=seq, batch=batch)
+
+    def fn(step: int):
+        b = token_batch(tcfg, step, device=device)
+        if model.family == "vlm" and cfg.vlm_patches:
+            pe = np.random.default_rng(step).normal(
+                0, 1, (batch, cfg.vlm_patches, cfg.vit_dim)).astype(np.float32)
+            b["patch_embeds"] = torch.from_numpy(pe).to(resolve_device(device))
+        return b
+    return fn
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

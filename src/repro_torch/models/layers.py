@@ -14,11 +14,13 @@ dense (B, S_buf, KV, hd) buffer, under one shared position or per-slot
 positions (t < 0: an inactive slot, whose write is dropped and whose row is
 all invalid), or into a paged cache (``repro_torch.serve.kvcache``), and
 attends over the whole buffer. A windowed layer's buffer is a ring of
-``min(window, max_len)`` slots (position p at slot p mod S_buf).
+``min(window, max_len)`` slots (position p at slot p mod S_buf), or, with a
+pinned prefix of P positions (hymba's meta tokens), P fixed slots followed
+by a ring of S_buf - P: position p < P at slot p, a later one at P + (p -
+P) mod (S_buf - P); the prefix stays attendable whatever the window.
 
 Not ported yet (ROADMAP.md section 1, item 6): layer norm and soft-capping
-(no ported arch sets them), the window's pinned prefix (hymba's meta
-tokens), cross-attention.
+(no ported arch sets them), cross-attention.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ class Init:
     """Draws parameters on ``device`` from an explicit ``torch.Generator``:
     normal(0, 1 / sqrt(fan_in)) (fan_in: the first dimension unless named)
     or normal(0, stddev), drawn in f32 and cast to ``dtype``, as the
-    reference's ``Init.normal``; ones for the norm scales."""
+    reference's ``Init.normal``; ones for the norm scales, zeros, and
+    constants computed in f32 (``const``, the reference's ``Init.const``)."""
 
     def __init__(self, generator: torch.Generator, device: torch.device,
                  dtype: torch.dtype):
@@ -61,6 +64,15 @@ class Init:
     def zeros(self, *shape: int) -> nn.Parameter:
         return nn.Parameter(torch.zeros(shape, device=self.device,
                                         dtype=self.dtype))
+
+    def const(self, value: torch.Tensor) -> nn.Parameter:
+        """``value`` (drawn or computed in f32) cast to ``dtype``."""
+        return nn.Parameter(value.to(device=self.device, dtype=self.dtype))
+
+    def uniform(self, *shape: int) -> torch.Tensor:
+        """An f32 draw in [0, 1) from the generator (not a parameter)."""
+        return torch.rand(shape, generator=self.generator,
+                          device=self.device, dtype=torch.float32)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -135,15 +147,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                    valid_k: Optional[torch.Tensor] = None, *,
-                   window: Optional[int] = None) -> torch.Tensor:
+                   window: Optional[int] = None,
+                   prefix_len: int = 0) -> torch.Tensor:
     """(..., Sq, Sk) causal mask from position indices: key <= query,
-    within the last ``window`` positions (key > query - window) when a
-    window is given, and the key valid where ``valid_k`` (..., Sk) is
-    given."""
+    within the last ``window`` positions (key > query - window) or among
+    the first ``prefix_len`` (always attendable) when a window is given,
+    and the key valid where ``valid_k`` (..., Sk) is given."""
     qp, kp = q_pos[..., :, None], k_pos[..., None, :]
     m = kp <= qp
     if window is not None:
-        m = m & (kp > qp - window)
+        in_window = kp > qp - window
+        if prefix_len > 0:
+            in_window = in_window | (kp < prefix_len)
+        m = m & in_window
     if valid_k is not None:
         m = m & valid_k[..., None, :]
     return m
@@ -177,21 +193,29 @@ def decode_positions(t: torch.Tensor) -> torch.Tensor:
     return t[None] if t.dim() == 0 else t[:, None]
 
 
-def ring_write_slot(t: torch.Tensor, s_buf: int) -> torch.Tensor:
-    """Buffer slot of absolute position t in a ring of ``s_buf`` slots (the
-    reference's ``ring_write_slot`` with no pinned prefix); a negative t
+def ring_write_slot(t: torch.Tensor, s_buf: int, prefix: int = 0
+                    ) -> torch.Tensor:
+    """Buffer slot of absolute position t: slots [0, prefix) are pinned to
+    the prefix, the rest is a ring of ``s_buf - prefix``; a negative t
     stays negative, a slot no write reaches."""
-    return torch.where(t < 0, t, t % s_buf)
+    return torch.where(t < prefix, t, prefix + (t - prefix) % (s_buf - prefix))
 
 
-def ring_slot_positions(t: torch.Tensor, s_buf: int):
-    """(absolute position, valid) of every slot of the ring, (..., s_buf),
-    given that the newest position written is t (...): slot i holds
-    position t - ((t mod s_buf - i) mod s_buf), valid once written (>= 0)
-    and not ahead of t."""
+def ring_slot_positions(t: torch.Tensor, s_buf: int, prefix: int = 0):
+    """(absolute position, valid) of every slot, (..., s_buf), given that
+    the newest position written is t (...): a prefix slot i holds position
+    i, valid once t >= i; a ring slot i holds t - ((r - i) mod ring), r the
+    slot of t, valid once written (>= prefix) and not ahead of t."""
     slot = torch.arange(s_buf, device=t.device)
-    pos = t[..., None] - ((t[..., None] % s_buf - slot) % s_buf)
-    return pos, (pos >= 0) & (pos <= t[..., None])
+    ring = s_buf - prefix
+    tt = t[..., None]
+    rel = prefix + (tt - prefix) % ring  # the slot t was written to
+    abs_ring = tt - ((rel - slot) % ring)
+    in_prefix = slot < prefix
+    pos = torch.where(in_prefix, slot, abs_ring)
+    valid = torch.where(in_prefix, slot <= tt,
+                        (abs_ring >= prefix) & (abs_ring <= tt))
+    return pos, valid
 
 
 def init_attention(ini: Init, d_model: int, n_heads: int, n_kv_heads: int,
@@ -248,7 +272,8 @@ def _write_token(buf: torch.Tensor, new: torch.Tensor, write_at: torch.Tensor
 def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
                      kv_cache, n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: float, *, rope, t_host=None,
-                     window: Optional[int] = None, name: str = "attn"):
+                     window: Optional[int] = None, prefix: int = 0,
+                     name: str = "attn"):
     """One decode step of causal self-attention for x (B, 1, d), the new
     token of each slot, at cache index t; returns (y (B, 1, d), new cache).
     The reference's ``attention`` with ``kv_cache`` and ``cache_index``:
@@ -266,7 +291,9 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
     ``rope``: the rotary table of ``decode_positions(t)``, which every
     layer of a step shares (:func:`rope_table`). ``window``: a windowed
     layer's size, on dense buffers only (the ring of its last positions;
-    the mask holds the window as well, as the reference's does).
+    the mask holds the window as well, as the reference's does);
+    ``prefix``: the pinned positions ahead of its ring (S_buf = window +
+    prefix), always attendable.
     """
     B = x.shape[0]
     positions = decode_positions(t)
@@ -283,8 +310,8 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
     else:
         K, V = kv_cache
         s_buf = K.shape[1]
-        write_at = ring_write_slot(t, s_buf).expand(B)
-        k_pos, valid = ring_slot_positions(t, s_buf)
+        write_at = ring_write_slot(t, s_buf, prefix).expand(B)
+        k_pos, valid = ring_slot_positions(t, s_buf, prefix)
         if t.dim() == 0:
             k_pos, valid = k_pos.expand(B, s_buf), valid.expand(B, s_buf)
         else:
@@ -292,7 +319,7 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
         K, V = _write_token(K, k, write_at), _write_token(V, v, write_at)
         out_cache = (K, V)
         mask = attention_mask(t.expand(B)[:, None], k_pos, valid_k=valid,
-                              window=window)
+                              window=window, prefix_len=prefix)
     y = _sdpa(q, K.to(q.dtype), V.to(q.dtype), mask)
     y = y.reshape(B, 1, n_heads * head_dim)
     return dense(y, p["wo"], name=f"{name}.o"), out_cache

@@ -1,4 +1,4 @@
-"""The decoder-only LMs (the dense and MoE families): training and
+"""The decoder-only LMs (the dense, MoE and VLM families): training and
 decoding.
 
 Counterpart of ``repro.models.transformer``: ``LMConfig``, ``init_lm``, the
@@ -24,12 +24,20 @@ unless ``window_pattern`` N > 0 and (i + 1) % (N + 1) == 0
 (:meth:`LMConfig.layer_is_local`). The unembedding is the embedding table
 (``tie_embeddings``) or its own ``head.lm_head``.
 
+The VLM (internvl2-2b, ``vlm_patches`` > 0): precomputed patch embeddings
+(B, vlm_patches, vit_dim) go through the projector, ``vit_proj1``, GELU
+(tanh form) and ``vit_proj2`` (both dithered, under those names), and are
+prepended to the token embeddings as a visual prefix; the loss counts the
+text positions only. Without patch embeddings the model is a text decoder
+(serving feeds text only, as the reference's engine does).
+
 Parameters (``LM.named_parameters()``): ``embed.table`` (V, d),
 ``layers.{i}.attn.{wq,wk,wv,wo}`` (and ``{bq,bk,bv}``),
 ``layers.{i}.mlp.{w_gate,w_up,w_down}`` (no ``w_gate`` for relu2) or
 ``layers.{i}.moe.{router,w_gate,w_up,w_down,ws_gate,ws_up,ws_down}``,
 ``layers.{i}.ln1``, ``layers.{i}.ln2``, ``head.ln_f`` (and
-``head.lm_head``); dense weights (in, out), as the reference's
+``head.lm_head``, ``head.vit_proj1`` (vit_dim, d), ``head.vit_proj2`` (d,
+d)); dense weights (in, out), as the reference's
 (``repro_torch.convert.lm_params_from_jax`` maps its stacked tree onto
 them).
 
@@ -39,9 +47,9 @@ KV, hd), a local layer's a ring of ``min(window, max_len)`` slots, or a
 paged cache (``repro_torch.serve.kvcache``, global layers only). The cache
 dtype is the model's.
 
-Not ported yet (ROADMAP.md section 1, item 6): the settings only other
-archs set (``norm``, ``softcap``, ``rope_scaling``, ``vlm_patches``) with
-those archs; the cache specs of the dry run (item 9).
+Not ported yet: the settings that no ported arch sets (``norm``,
+``softcap``, ``rope_scaling``; ROADMAP.md section 1, item 6), and the cache
+specs of the dry run (item 9).
 """
 from __future__ import annotations
 
@@ -81,6 +89,9 @@ class LMConfig:
     window_pattern: int = 0  # N -> every (N+1)th layer global; 0 -> none
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
     moe: Optional[MoEConfig] = None
+    # VLM (internvl2): a visual prefix of precomputed patch embeddings
+    vlm_patches: int = 0
+    vit_dim: int = 0
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True  # activation checkpointing per block in training
 
@@ -102,7 +113,7 @@ class LMConfig:
     @property
     def param_count(self) -> int:
         """Total parameters (the reference's count; the q/k/v biases are
-        not in it)."""
+        not in it, the VLM projector is)."""
         d, f, V, hd = self.d_model, self.d_ff, self.vocab, self.hd
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
         if self.moe is None:
@@ -114,7 +125,8 @@ class LMConfig:
                 mlp += 3 * d * m.d_ff_expert * m.n_shared
         per_layer = attn + mlp + 2 * d
         emb = V * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * per_layer + emb + d
+        proj = (self.vit_dim * d + d * d) if self.vlm_patches else 0
+        return self.n_layers * per_layer + emb + d + proj
 
     @property
     def active_param_count(self) -> int:
@@ -178,6 +190,11 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head["lm_head"] = ini.normal(cfg.d_model, cfg.vocab,
                                               stddev=0.02)
+        if cfg.vlm_patches:
+            self.head["vit_proj1"] = ini.normal(cfg.vit_dim, cfg.d_model,
+                                                fan_in=cfg.vit_dim)
+            self.head["vit_proj2"] = ini.normal(cfg.d_model, cfg.d_model,
+                                                fan_in=cfg.d_model)
 
 
 def init_lm(cfg: LMConfig, *, seed: int = 0,
@@ -189,23 +206,35 @@ def init_lm(cfg: LMConfig, *, seed: int = 0,
     return LM(cfg, L.Init(gen, dev, cfg.dtype))
 
 
-def _embed_inputs(net: LM, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_inputs(net: LM, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor] = None,
+                  ctx: Optional[DitherCtx] = None) -> torch.Tensor:
+    """The token embeddings, behind the projected visual prefix when the
+    config has one and patch embeddings are given."""
     x = L.embed(net.embed["table"], tokens)
     if net.cfg.embed_scale:
         x = x * L.embed_scale(net.cfg.d_model, x.dtype)
+    if net.cfg.vlm_patches and patch_embeds is not None:
+        pe = dense(patch_embeds.to(x.dtype), net.head["vit_proj1"], ctx=ctx,
+                   name="vit_proj1")
+        pe = dense(L.act_fn("gelu")(pe), net.head["vit_proj2"], ctx=ctx,
+                   name="vit_proj2")
+        x = torch.cat([pe, x], 1)
     return x
 
 
 def _rerun_marked(block):
-    """``block`` for ``torch.utils.checkpoint``: its second call, the rerun
-    in the backward, gets its context marked ``recompute``."""
+    """``block`` (called with the dither context last) for
+    ``torch.utils.checkpoint``: its second call, the rerun in the backward,
+    gets its context marked ``recompute``."""
     calls = []
 
-    def run(x, pos_b, mask, ctx):
+    def run(*args):
+        *args, ctx = args
         if calls and ctx is not None:
             ctx = dataclasses.replace(ctx, recompute=True)
         calls.append(None)
-        return block(x, pos_b, mask, ctx)
+        return block(*args, ctx)
     return run
 
 
@@ -224,12 +253,15 @@ def _unembed(net: LM, x: torch.Tensor, ctx: Optional[DitherCtx] = None
 
 
 def forward_aux(net: LM, tokens: torch.Tensor, *,
-                ctx: Optional[DitherCtx] = None):
-    """tokens (B, S) -> (logits (B, S, V) in the model's dtype, the blocks'
-    aux loss summed, f32; None for the dense family)."""
+                ctx: Optional[DitherCtx] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S) -> (logits (B, S_total, V) in the model's dtype, the
+    blocks' aux loss summed, f32; None for the dense family). S_total is S
+    plus the visual prefix's ``vlm_patches`` when ``patch_embeds`` are
+    given."""
     cfg = net.cfg
-    x = _embed_inputs(net, tokens)
-    B, S = tokens.shape
+    x = _embed_inputs(net, tokens, patch_embeds, ctx)
+    B, S = x.shape[:2]
     pos_b = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     masks = _masks(cfg, pos_b)
     auxs = []
@@ -246,16 +278,20 @@ def forward_aux(net: LM, tokens: torch.Tensor, *,
 
 
 def forward(net: LM, tokens: torch.Tensor, *,
-            ctx: Optional[DitherCtx] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) in the model's dtype."""
-    return forward_aux(net, tokens, ctx=ctx)[0]
+            ctx: Optional[DitherCtx] = None,
+            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S_total, V) in the model's dtype."""
+    return forward_aux(net, tokens, ctx=ctx, patch_embeds=patch_embeds)[0]
 
 
 def loss_fn(net: LM, batch: Dict[str, torch.Tensor], *,
             ctx: Optional[DitherCtx] = None) -> torch.Tensor:
-    """Next-token cross-entropy in f32, the mean over every position, plus
-    the MoE aux loss."""
-    logits, aux = forward_aux(net, batch["tokens"], ctx=ctx)
+    """Next-token cross-entropy in f32, the mean over every text position
+    (a visual prefix's positions are dropped), plus the MoE aux loss."""
+    pe = batch.get("patch_embeds")
+    logits, aux = forward_aux(net, batch["tokens"], ctx=ctx, patch_embeds=pe)
+    if net.cfg.vlm_patches and pe is not None:
+        logits = logits[:, -batch["labels"].shape[1]:]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     labels = batch["labels"]
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -327,17 +363,19 @@ def decode_step(net: LM, cache, token: torch.Tensor,
 
 
 @torch.no_grad()
-def prefill(net: LM, tokens: torch.Tensor, max_len: int):
-    """Run the whole prompt (B, S) and build a decode cache of ``max_len``
-    positions. Returns (logits (B, S, V), cache, t = S - 1). A local
-    layer whose ring is shorter than the prompt keeps the last S_buf
+def prefill(net: LM, tokens: torch.Tensor, max_len: int,
+            patch_embeds: Optional[torch.Tensor] = None):
+    """Run the whole prompt (B, S), behind its visual prefix when
+    ``patch_embeds`` are given, and build a decode cache of ``max_len``
+    positions. Returns (logits (B, S_total, V), cache, t = S_total - 1). A
+    local layer whose ring is shorter than the prompt keeps the last S_buf
     positions, position p at slot p mod S_buf."""
     cfg = net.cfg
-    B, S = tokens.shape
+    x = _embed_inputs(net, tokens, patch_embeds)
+    B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"prefill: a {S}-token prompt does not fit "
                          f"max_len {max_len}")
-    x = _embed_inputs(net, tokens)
     pos_b = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     masks = _masks(cfg, pos_b)
     cache = init_cache(cfg, B, max_len, device=tokens.device)

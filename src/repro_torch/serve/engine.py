@@ -12,9 +12,13 @@ cache position 0, not 40), and an inactive micro-step is position
 
 KV storage is either the dense per-slot buffers of ``Model.init_cache``
 (``kv_page=0``; a windowed layer's buffer is a ring of ``min(window,
-max_len)`` slots) or the paged, codec-quantized pool of
-``repro_torch.serve.kvcache`` (refused for windowed configs, as in the
-reference); admission, page allocation and
+max_len)`` slots; the SSM family's caches are per-layer {"conv", "state"}
+states, the hybrid's {"kv", "ssm"}) or the paged, codec-quantized pool of
+``repro_torch.serve.kvcache`` (refused for windowed configs and for caches
+that are not per-layer (K, V), as in the reference). A slot admitted
+anew is reset to its template row: zeros, or for the hybrid family the
+cache with the meta tokens replayed in (``hybrid.bootstrap_cache``), whose
+text then starts at position ``n_meta_tokens``. Admission, page allocation and
 preemption-and-recompute on pool exhaustion live in
 ``repro_torch.serve.scheduler``. A preempted request requeues at the front
 with its generated tokens folded into the replay prompt, so greedy decoding
@@ -35,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import hybrid
 from repro_torch.models.api import Model
 from repro_torch.obs.bus import get_bus
 from repro_torch.obs.trace import span
@@ -70,22 +75,38 @@ def _is_paged(x) -> bool:
     return hasattr(x, "update_and_view")
 
 
+def _map_leaves(fn, *trees):
+    """``fn`` over the batch-major tensors of cache trees (lists, tuples
+    and dicts of tensors); paged caches pass through as they are."""
+    first = trees[0]
+    if _is_paged(first):
+        return first
+    if isinstance(first, dict):
+        return {k: _map_leaves(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_leaves(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _leaves(tree):
+    out = []
+    _map_leaves(out.append, tree)
+    return out
+
+
 def _select_cache(t: torch.Tensor, new, old):
     """Per-slot cache select: keep ``old`` rows where the slot was inactive
-    this micro-step (t < 0). Paged caches pass through: their writes are
-    already masked by the t < 0 convention (and their pools are
-    page-major)."""
-    out, active = [], None
-    for n, o in zip(new, old):
-        if _is_paged(n):
-            out.append(n)
-            continue
-        if active is None:
-            active = t >= 0
-        out.append(tuple(torch.where(
-            active.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-            for a, b in zip(n, o)))
-    return out
+    this micro-step (t < 0), in every leaf of the cache (K and V buffers,
+    SSM states). Paged caches pass through: their writes are already masked
+    by the t < 0 convention (and their pools are page-major)."""
+    active = []  # t >= 0, made at the first dense leaf
+
+    def select(a, b):
+        if not active:
+            active.append(t >= 0)
+        return torch.where(active[0].reshape((-1,) + (1,) * (a.dim() - 1)),
+                           a, b)
+    return _map_leaves(select, new, old)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -105,10 +126,18 @@ class Engine:
         self.name = name
         self.device = next(params.parameters()).device
         B = cfg.max_batch
+        # position of text token 0 (hybrid prepends learnable meta tokens)
+        self._pos_base = int(getattr(model.cfg, "n_meta_tokens", 0))
 
         pool = None
         self._max_pages = 0
+        self._template = None  # None: a fresh slot is zeros
         if cfg.kv_page > 0:
+            probe = model.init_cache(1, 1, device=self.device)
+            if not all(isinstance(c, tuple) and len(c) == 2 for c in probe):
+                raise ValueError(
+                    f"paged KV needs per-layer (K, V) caches; {model.name} "
+                    f"({model.family}) keeps other state — use kv_page=0")
             if getattr(model.cfg, "window", None) is not None:
                 raise ValueError(
                     "paged KV does not cover sliding-window ring buffers "
@@ -117,6 +146,9 @@ class Engine:
             n_pages = cfg.kv_pool_pages or B * self._max_pages
             pool = PagePool(n_pages, cfg.kv_page)
             self.cache = self._paged_cache(n_pages)
+        elif model.family == "hybrid":
+            self._template = hybrid.bootstrap_cache(params, B, cfg.max_len)
+            self.cache = _map_leaves(torch.clone, self._template)
         else:
             self.cache = model.init_cache(B, cfg.max_len, device=self.device)
         self.sched = Scheduler(
@@ -155,15 +187,19 @@ class Engine:
         return out
 
     def _reset_slot(self, i: int) -> None:
-        """Zero slot ``i``'s dense buffers (the reference's copy of the
-        fresh template row): the last request's rows are masked, but a
-        masked row still meets a zero probability in the value product, and
-        0 x inf is NaN. Paged caches skip: replayed positions overwrite, and
-        their pages decode from finite encodings."""
-        for kv in self.cache:
-            if not _is_paged(kv):
-                for a in kv:
-                    a[i] = 0
+        """Reset slot ``i``'s dense leaves to the template row (the
+        reference's ``_copy_slot``): zeros, or the hybrid's meta-bootstrapped
+        cache. The last request's KV rows are masked, but a masked row
+        still meets a zero probability in the value product, and 0 x inf
+        is NaN; an SSM state carries the last request on. Paged caches
+        skip: replayed positions overwrite, and their pages decode from
+        finite encodings."""
+        if self._template is None:
+            for a in _leaves(self.cache):
+                a[i] = 0
+        else:
+            _map_leaves(lambda a, tpl: a[i].copy_(tpl[i]), self.cache,
+                        self._template)
 
     def _push_table(self) -> None:
         if self.cfg.kv_page <= 0:
@@ -175,7 +211,7 @@ class Engine:
         if self.cfg.kv_page > 0:
             used = self.sched.pool.used_pages
             return used * self._page_bytes, used * self._page_dense
-        n = sum(a.numel() * a.element_size() for kv in self.cache for a in kv)
+        n = sum(a.numel() * a.element_size() for a in _leaves(self.cache))
         return n, n
 
     # ------------------------------------------------------------ request API
@@ -284,7 +320,7 @@ class Engine:
                     break
             if self._slots[s] is None:
                 continue
-            plan[s] = (toks, n, fed)
+            plan[s] = (toks, n, self._pos_base + fed)
         return plan
 
     def step(self) -> None:
@@ -344,9 +380,10 @@ class Engine:
 
 
 def greedy_generate(model: Model, params, prompt, n_new: int,
-                    max_len: int = 256) -> List[int]:
-    """Single-sequence reference path: ``Model.prefill`` + greedy decode.
-    The engine's fp32-page output is gated token for token against this in
+                    max_len: int = 256, **extras) -> List[int]:
+    """Single-sequence reference path: ``Model.prefill`` (``extras``, such
+    as a VLM's ``patch_embeds``, go to it) + greedy decode. The engine's
+    fp32-page output is gated token for token against this in
     ``repro_torch.train.serve_bench``."""
     if n_new <= 0:
         return []
@@ -354,7 +391,7 @@ def greedy_generate(model: Model, params, prompt, n_new: int,
     prompt = torch.as_tensor(np.asarray(prompt, np.int64), device=device)
     if prompt.dim() == 1:
         prompt = prompt[None]
-    logits, cache, t = model.prefill(params, prompt, max_len)
+    logits, cache, t = model.prefill(params, prompt, max_len, **extras)
     tok = torch.argmax(logits[:, -1:, :], dim=-1)
     out = [tok]
     for _ in range(n_new - 1):

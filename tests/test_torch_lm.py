@@ -131,9 +131,9 @@ def test_gemma_config_matches_reference(which):
 
 @pytest.mark.parametrize("arch", sorted(set(J_ARCH_IDS) - set(ARCH_IDS)))
 def test_unported_configurations_raise(arch):
-    """The reference's other archs (MoE, SSM, hybrid, VLM, audio, sliding
-    window, soft-cap, other MLPs, untied heads) are refused by the registry
-    and the launcher, naming the ROADMAP item."""
+    """The reference's archs the port lacks (the audio family's
+    whisper-small) are refused by the registry and the launcher, naming the
+    ROADMAP item."""
     assert arch in NOT_PORTED
     for get in (get_model, get_smoke_model):
         with pytest.raises(NotImplementedError,

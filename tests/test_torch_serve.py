@@ -624,7 +624,7 @@ def test_parse_serve_spec_matches_reference(spec):
     ("worker gemma-2b: widgets=7", ValueError, "unknown serve key"),
     ("worker gemma-2b: batch", ValueError, "not key=value"),
     ("worker gemma-2b", ValueError, "followed by"),
-    ("worker mamba2-370m: batch=2", NotImplementedError, "section 1, item 6"),
+    ("worker whisper-small: batch=2", NotImplementedError, "section 1, item 6"),
 ])
 def test_parse_serve_spec_rejects(spec, err, match):
     with pytest.raises(err, match=match):
@@ -649,7 +649,7 @@ def test_launcher_serves_on_the_cpu_with_a_run_dir(tmp_path, capsys):
     assert sum(r["gen_tokens"] for r in rows) == 15
     assert "monitor" not in streams  # a healthy run trips nothing
     with pytest.raises(NotImplementedError, match="item 6"):
-        launch_serve.main(["--arch", "mamba2-370m", "--device", "cpu"])
+        launch_serve.main(["--arch", "whisper-small", "--device", "cpu"])
 
 
 def test_launcher_raises_without_a_gpu(monkeypatch):

@@ -1,13 +1,16 @@
-"""Port parity for the rest of the LM zoo's dense and MoE families
-(gemma3-4b, qwen2.5-32b, minitron-8b, moonshot-v1-16b-a3b, dbrx-132b):
-configurations, parameter trees, logits, losses, paper-variant gradients,
-sliding windows, decoding, and the launchers, ``repro_torch`` against
-``repro`` on the CPU.
+"""Port parity for the rest of the LM zoo's dense, MoE and VLM families
+(gemma3-4b, qwen2.5-32b, minitron-8b, moonshot-v1-16b-a3b, dbrx-132b,
+internvl2-2b): configurations, parameter trees, logits, losses,
+paper-variant gradients, sliding windows, decoding, and the launchers,
+``repro_torch`` against ``repro`` on the CPU.
 
 Every arch runs its smoke configuration from the reference's ``init_lm``
 draw (seed 0), converted with ``repro_torch.convert.lm_params_from_jax``,
 on the reference's token batch 0 at batch 2 x seq 16 (twice gemma3's smoke
-window of 8, so the window binds). Gradients take the reference's
+window of 8, so the window binds). internvl2-2b's batch also carries 8
+patch embeddings of 64 (normal(0, 1) from ``np.random.default_rng(0)``, as
+the launchers' ``batch_fn_for`` draws them): its projector's output is a
+visual prefix of 8 positions, and its loss counts the 16 text positions. Gradients take the reference's
 per-layer draw (fed through ``DitherCtx.unit_noise``) and its Delta
 (``jnp.std``, patched into ``nsd.compute_delta``), as
 tests/test_torch_lm.py does.
@@ -48,7 +51,8 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serve import Engine, Request, ServeConfig, greedy_generate  # noqa: E402
 
 ZOO = ("gemma3-4b", "qwen2.5-32b", "minitron-8b", "moonshot-v1-16b-a3b",
-       "dbrx-132b")
+       "dbrx-132b", "internvl2-2b")
+VLM = "internvl2-2b"
 MOE = ("moonshot-v1-16b-a3b", "dbrx-132b")
 B, S, SEED = 2, 16, 0
 _CACHE = {}
@@ -64,10 +68,12 @@ def _setup(arch):
         net.load_state_dict(lm_params_from_jax(jax.tree.map(np.asarray,
                                                             params)))
         tcfg = dict(vocab=jm.cfg.vocab, seq_len=S, batch=B)
-        _CACHE[arch] = dict(jm=jm, m=m, params=params, net=net,
-                            jb=j_token_batch(JTok(**tcfg), 0),
-                            tb=token_batch(TokenStreamConfig(**tcfg), 0,
-                                           device="cpu"))
+        jb = j_token_batch(JTok(**tcfg), 0)
+        tb = token_batch(TokenStreamConfig(**tcfg), 0, device="cpu")
+        if jm.cfg.vlm_patches:
+            pe = launch_train.batch_fn_for(m, B, S, "cpu")(0)["patch_embeds"]
+            jb["patch_embeds"], tb["patch_embeds"] = jnp.asarray(pe.numpy()), pe
+        _CACHE[arch] = dict(jm=jm, m=m, params=params, net=net, jb=jb, tb=tb)
     return _CACHE[arch]
 
 
@@ -99,22 +105,22 @@ def _pd(tree):
 CFG_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
               "vocab", "hd", "act", "qkv_bias", "tie_embeddings",
               "rope_theta", "window", "window_pattern", "embed_scale",
-              "remat")
+              "vlm_patches", "vit_dim", "remat")
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
 @pytest.mark.parametrize("arch", ("gemma-2b",) + ZOO)
 def test_config_matches_reference(arch, which):
-    """Widths letter for letter, the MoE settings, dtype and the parameter
-    counts; the settings the port leaves out are the reference's
+    """Widths letter for letter, the MoE and VLM settings, dtype and the
+    parameter counts; the settings the port leaves out are the reference's
     defaults for these archs."""
     jm, m = ((j_get_model(arch), get_model(arch)) if which == "full"
              else (j_get_smoke(arch), get_smoke_model(arch)))
     assert (m.name, m.family) == (jm.name, jm.family)
     for f in CFG_FIELDS:
         assert getattr(m.cfg, f) == getattr(jm.cfg, f), f
-    assert (jm.cfg.norm, jm.cfg.softcap, jm.cfg.rope_scaling,
-            jm.cfg.vlm_patches) == ("rmsnorm", None, 1.0, 0)
+    assert (jm.cfg.norm, jm.cfg.softcap, jm.cfg.rope_scaling) == (
+        "rmsnorm", None, 1.0)
     if jm.cfg.moe is None:
         assert m.cfg.moe is None
     else:
@@ -127,10 +133,15 @@ def test_config_matches_reference(arch, which):
 
 
 def test_registry_holds_the_dense_and_moe_families():
-    assert set(ARCH_IDS) == {"gemma-2b"} | set(ZOO)
+    """The registry holds every arch of the reference but whisper-small
+    (the dense, MoE and VLM families here, the SSM and hybrid ones in
+    tests/test_torch_ssm.py)."""
+    assert set(ARCH_IDS) == {"gemma-2b", "mamba2-370m", "hymba-1.5b"} | set(ZOO)
     assert set(NOT_PORTED) == set(J_ARCH_IDS) - set(ARCH_IDS) == {
-        "hymba-1.5b", "mamba2-370m", "internvl2-2b", "whisper-small"}
+        "whisper-small"}
+    assert NOT_PORTED == ("whisper-small",)
     assert get_model("gemma3-4b").param_count == 3_879_907_840  # ~3.88 B
+    assert get_model(VLM).param_count == 1_895_438_336  # the projector's in
     gemma3 = get_model("gemma3-4b").cfg
     assert [i for i in range(34) if not gemma3.layer_is_local(i)] == [
         5, 11, 17, 23, 29]
@@ -140,7 +151,8 @@ def test_registry_holds_the_dense_and_moe_families():
 def test_parameter_tree_and_conversion(arch):
     """The port's parameters are the reference's tree (q/k/v biases, the
     untied head, relu2 without a gate, the MoE router, experts and shared
-    experts), one block per layer; the conversion round-trips exactly."""
+    experts, the VLM projector ``head.vit_proj1`` and ``.vit_proj2``), one
+    block per layer; the conversion round-trips exactly."""
     st = _setup(arch)
     tree = jax.tree.map(np.asarray, st["params"])
     fresh = dict(st["m"].init(SEED, "cpu").named_parameters())
@@ -219,10 +231,12 @@ def test_windowed_mask_matches_reference():
 def test_logits_and_loss_match_reference(arch):
     st = _setup(arch)
     with torch.no_grad():
-        got, aux = tf.forward_aux(st["net"], st["tb"]["tokens"])
+        got, aux = tf.forward_aux(st["net"], st["tb"]["tokens"],
+                                  patch_embeds=st["tb"].get("patch_embeds"))
         loss = st["m"].loss(st["net"], st["tb"])
     want, jaux = st["jm"].forward(st["params"], st["jb"])
-    assert tuple(got.shape) == (B, S, 512)
+    prefix = st["m"].cfg.vlm_patches  # the visual prefix's positions
+    assert tuple(got.shape) == (B, prefix + S, 512)
     _close(got, want)
     np.testing.assert_allclose(float(loss),
                                float(st["jm"].loss(st["params"], st["jb"])),
@@ -286,7 +300,8 @@ def test_dither_names_match_reference(arch):
     """The names the port's layers resolve equal the reference's
     (``discover_layer_names``): the router ``moe.router`` under every block,
     the experts ``L.moe.{gate,up,down}``, the shared ones
-    ``L.moe.{sgate,sup,sdown}``."""
+    ``L.moe.{sgate,sup,sdown}``, the VLM's projector ``vit_proj1`` and
+    ``vit_proj2``."""
     st = _setup(arch)
     want = jsched.discover_layer_names(
         lambda p, b, ctx: st["jm"].loss(p, b, ctx=ctx), st["params"], st["jb"])
@@ -302,6 +317,8 @@ def test_dither_names_match_reference(arch):
     assert sorted(seen) == want
     if arch in MOE:
         assert "moe.router" in seen and "L.moe.gate" in seen
+    if arch == VLM:
+        assert {"vit_proj1", "vit_proj2"} <= seen
 
 
 # ---------------------------------------------------------------------------
@@ -309,20 +326,25 @@ def test_dither_names_match_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,prompt_len", [
-    ("gemma3-4b", 5), ("gemma3-4b", 12), ("moonshot-v1-16b-a3b", 5)],
-    ids=["gemma3-short", "gemma3-past_window", "moonshot"])
+    ("gemma3-4b", 5), ("gemma3-4b", 12), ("moonshot-v1-16b-a3b", 5),
+    (VLM, 5)],
+    ids=["gemma3-short", "gemma3-past_window", "moonshot", "internvl"])
 def test_prefill_and_decode_match_reference(arch, prompt_len):
     """prefill on a prompt (shorter than gemma3's window of 8, or past it:
-    the ring keeps the last 8 positions), then 8 greedy decode steps (the
-    ring wraps), against the reference's prefill and decode_step: each
-    step's logits rtol 1e-5, the same greedy tokens, the same caches."""
+    the ring keeps the last 8 positions; internvl's behind its visual
+    prefix of 8 projected patches), then 8 greedy decode steps (the ring
+    wraps), against the reference's prefill and decode_step: each step's
+    logits rtol 1e-5, the same greedy tokens, the same caches."""
     st = _setup(arch)
     jcfg, max_len = st["jm"].cfg, 32
     prompt = np.asarray(st["jb"]["tokens"])[:, :prompt_len]
+    pe = st["tb"].get("patch_embeds")
     jl, jcache, jt = jtf.prefill(st["params"], jcfg, jnp.asarray(prompt),
-                                 max_len)
+                                 max_len, patch_embeds=st["jb"].get(
+                                     "patch_embeds"))
     logits, cache, t = tf.prefill(st["net"], torch.from_numpy(prompt.astype(np.int64)),
-                                  max_len)
+                                  max_len, patch_embeds=pe)
+    assert logits.shape[1] == prompt_len + jcfg.vlm_patches
     _close(logits, jl)
     assert t == int(jt)
     for (K, V), (jK, jV) in zip(cache, jcache):
@@ -384,6 +406,32 @@ def test_windowed_engine_matches_greedy_generate_and_refuses_pages():
     assert sorted(done) == [0, 1, 2]
     for i, p in enumerate(prompts):
         assert done[i] == greedy_generate(m, net, p, 10, max_len=32), i
+
+
+def test_vlm_engine_on_pages_and_greedy_generate_with_patches():
+    """internvl2-2b's smoke model serves text in the engine on fp32 pages
+    of 8, its tokens equal to ``greedy_generate``'s (its nsd pages run the
+    same paged path as gemma-2b's, tests/test_torch_serve.py);
+    ``greedy_generate`` hands ``patch_embeds`` to the prefill, whose tokens
+    equal the reference's."""
+    from repro.serve import greedy_generate as j_greedy
+    st = _setup(VLM)
+    m, net = st["m"], st["net"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, size=n) for n in (11, 3, 9)]
+    eng = Engine(m, net, ServeConfig(max_batch=2, max_len=32, chunk=4,
+                                     kv_page=8))
+    for i, p in enumerate(prompts):
+        assert eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+    done = eng.run(max_ticks=64)
+    assert sorted(done) == [0, 1, 2]
+    for i, p in enumerate(prompts):
+        assert done[i] == greedy_generate(m, net, p, 6, max_len=32)
+    pe = st["tb"]["patch_embeds"][:1]
+    got = greedy_generate(m, net, prompts[0], 6, max_len=32, patch_embeds=pe)
+    want = j_greedy(st["jm"], st["params"], prompts[0].astype(np.int32), 6,
+                    max_len=32, patch_embeds=st["jb"]["patch_embeds"][:1])
+    assert got == want
 
 
 @pytest.mark.parametrize("arch", MOE)
