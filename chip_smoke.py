@@ -317,7 +317,38 @@ Phases (any failure exits non-zero and prints no result):
          window of 8 in the engine, its tokens equal to
          ``greedy_generate``'s; the three smoke presets through the serve
          launcher;
-  14. print one JSON line naming the seven kernels (the NSD row carries its
+  14. the audio family: whisper-small (12 encoder and 12 decoder blocks,
+     d 768, vocab 51,865, tied; 238.45 M parameters) at full width and
+     depth, bf16, remat, AdamW, batch 8 x 448 zipf tokens (the decoder's
+     whole context) over 1,500 frames a sequence (8 x 1,500 = 12,000
+     encoder rows, 12,000 mod 128 = 96), the program ``phase@0=off;
+     phase@1=kernel``: lm_head on the kernel (K = 51,865, inside the int8
+     product's exact range);
+     14a. through the launcher (``--preset full``, 4 steps): finite losses
+         and gradient norms, per kernel step 193 NSD (12 x 6 encoder and 12
+         x 10 decoder denses and lm_head) and 386 int8 launches, every int8
+         product's K <= 133,144, no fallback; host ms a step, peak device
+         memory, a device-only profile of one kernel step with the int8
+         products' device time beside their bound; the NSD kernel at the
+         ragged cotangents (12,000 rows; lm_head's 3,584 x 51,865) and the
+         int8 product at the ragged contractions (12,032 and 51,968 once
+         padded) captured from a kernel step and held bit for bit against
+         their plain versions; 12b's gradient check on the first kernel
+         step (every gradient finite);
+     14b. 2 kernel steps of the same model under ``memory: default=nsd``:
+         the launches (NSD 578: the cotangents and two encodes a block's
+         dense, one for lm_head's; compact 385, expand 193, int8 386),
+         finite losses, ``residual_compression`` and the gradients of a
+         step against the plain versions;
+     14c. serving at full width: ``greedy_generate(model, net, prompt, 32,
+         frames=...)`` with one request's 1,500 frames and a 4-token
+         prompt (tokens a second); its prefill and decode logits against
+         the teacher-forced ``forward`` logits over the same 35 tokens
+         (relative L2 <= 5e-2 in bf16, <= 1e-4 for an f32 copy), the
+         decode's argmax equal to the greedy tokens; ``Engine`` and
+         ``python -m repro_torch.launch.serve --arch whisper-small`` each
+         raise the reference's ``ValueError``;
+  15. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
      paged expand of phase 10b under ``serve_pages``, the pack row its
@@ -325,9 +356,9 @@ Phases (any failure exits non-zero and prints no result):
      ``moe_expert_slice``, by arch;
      phase 5's log gives the NSD row's bound by the padded definition too,
      9 bytes a padded element; every row's ``launches_by_path`` gives its
-     launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11, 12
-     and 13);
-  15. print the JSON result line last.
+     launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11, 12,
+     13 and 14);
+  16. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -514,6 +545,21 @@ FAMILY_STEPS = 4
 FAMILY_SERVE_SPEC = "worker {}: batch=8;max_len=128;chunk=8{}"
 FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW = 8, 16
 
+# phase 14: whisper-small at full width and depth, batch 8 x 448 decoder
+# tokens (its whole context) over 1,500 frames, the kernel program from step
+# 1 with lm_head on the kernel (K = 51,865 < INT32_EXACT_K)
+AUDIO_ARCH = "whisper-small"
+AUDIO_SEQ = 448
+AUDIO_PROGRAM = "dither: phase@0=off;phase@1=kernel"
+AUDIO_NSD_PROGRAM = "dither: phase@0=kernel memory: default=nsd"
+AUDIO_STEPS, AUDIO_NSD_STEPS = 4, 2
+AUDIO_PARAMS = 238_452_480  # the tree; the reference's count is 238,450,944
+AUDIO_PROMPT, AUDIO_NEW = 4, 32
+# prefill + decode against the teacher-forced forward, relative L2 of the
+# logits: bf16 rounds each token's path at other places (2^-9 relative a
+# rounding, compounded over 24 blocks); f32 differs in summation order only
+AUDIO_LOGIT_BAND = {"bf16": 5e-2, "f32": 1e-4}
+
 
 def zoo_kernel_step(cfg) -> dict:
     """The launches of one kernel step (lm_head off) of an LM config: per
@@ -523,7 +569,12 @@ def zoo_kernel_step(cfg) -> dict:
     of each expert einsum, and two int8 products per dense and per expert
     slice (every input needs dx); the VLM's projector adds two NSD and
     three int8 products (``vit_proj1``'s dx is skipped: the patch
-    embeddings need no gradient)."""
+    embeddings need no gradient). The encoder-decoder (whisper's program
+    keeps lm_head on the kernel): 6 denses an encoder block, 10 a decoder
+    block (self and cross attention, the MLP) and lm_head."""
+    if hasattr(cfg, "n_frames"):  # the encoder-decoder, lm_head on the kernel
+        dense = cfg.n_layers * (6 + 10) + 1
+        return {"nsd_quant": dense, "bsp_matmul_int8": 2 * dense}
     mlp = 3 if getattr(cfg, "act", None) in ("swiglu", "geglu") else 2
     einsums = slices = extra_nsd = extra_int8 = 0
     if not hasattr(cfg, "n_heads"):  # the SSM LM: the mixer alone
@@ -1967,11 +2018,13 @@ def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
         packs["skipped"].append((out[2] == 0).sum())  # summed after the run
         return out
 
-    def run(label, fn, n_params=None):
+    def run(label, fn, n_params=None, want=None):
         """fn() -> a trainer, with every step timed and its launches, the
         int8 products' K and the packs' masks recorded; checks no fallback,
-        finite losses and the K bound. Returns (trainer, launches over the
-        run, peak device memory above what was held before)."""
+        finite losses, the K bound and each step's launches (``want(cfg,
+        step)``; by default :func:`zoo_kernel_step` from the first kernel
+        step on). Returns (trainer, launches over the run, peak device
+        memory above what was held before)."""
         steps_seen.clear()
         ks.clear()
         packs.update(tiles=0, skipped=[], slices={})
@@ -1996,12 +2049,14 @@ def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
         got_params = sum(p.numel() for p in trainer.net.parameters())
         if n_params is not None:
             check(got_params == n_params, f"{label}: {got_params} parameters")
-        want_step = zoo_kernel_step(trainer.model.cfg)
+        if want is None:
+            def want(cfg, step):
+                return zoo_kernel_step(cfg) if step >= ZOO_FIRST_KERNEL_STEP else {}
         for step, ms, loss, launched in steps_seen:
             check(math.isfinite(loss), f"{label} step {step}: loss {loss}")
-            want = want_step if step >= ZOO_FIRST_KERNEL_STEP else {}
-            check(launched == want, f"{label} step {step}: launches {launched}, "
-                                    f"want {want}")
+            want_step = want(trainer.model.cfg, step)
+            check(launched == want_step, f"{label} step {step}: launches "
+                                         f"{launched}, want {want_step}")
             log(f"phase {label} step {step}: {ms:.3f} ms on the host clock, "
                 f"loss {loss:.4f}, launches {launched}")
         check(max(ks, default=0) <= INT32_EXACT_K,
@@ -2028,7 +2083,7 @@ def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
             p.grad = None
         return float(loss), grads, metrics.overall_sparsity() * 100
 
-    def grad_check(trainer, label):
+    def grad_check(trainer, label, seq=ZOO_SEQ):
         """The first kernel step's gradients on the kernels and on their
         plain versions (AdamW's state freed first: only the gradients are
         needed)."""
@@ -2037,7 +2092,7 @@ def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
         torch.cuda.empty_cache()
         prog = trainer.program
         trainer.program = prog.replace(base=prog.base.replace(collect_stats=True))
-        batch = lm_train.batch_fn_for(trainer.model, ZOO_BATCH, ZOO_SEQ, dev)(
+        batch = lm_train.batch_fn_for(trainer.model, ZOO_BATCH, seq, dev)(
             ZOO_FIRST_KERNEL_STEP)
         build.reset_launches()
         loss_k, grads_k, sp_k = step_grads(trainer, batch, ZOO_FIRST_KERNEL_STEP)
@@ -2071,7 +2126,7 @@ def lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
 
     return types.SimpleNamespace(run=run, grad_check=grad_check, release=release,
                                  n_blocks=n_blocks, steps_seen=steps_seen,
-                                 packs=packs)
+                                 packs=packs, step_grads=step_grads)
 
 
 def phase12(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
@@ -2566,6 +2621,246 @@ def phase13(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({card})")
     return paths
 
+
+def phase14(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
+            same):
+    """Phase 14: the audio family. 14a whisper-small at full width and depth
+    through the launcher (the launches of a kernel step, lm_head on the
+    kernel, the int8 products' K, no fallback, finite losses and gradient
+    norms, host ms a step, peak memory, a device-only profile of one kernel
+    step with the int8 products' device time beside their bound; the NSD
+    and int8 kernels at the ragged shapes of a kernel step bit for bit
+    against their plain versions; the first kernel step's gradients against
+    the plain versions); 14b two kernel steps under ``memory: default=nsd``;
+    14c ``greedy_generate`` with encoder frames at full width, its logits
+    against the teacher-forced forward's, and the engine's and the serve
+    launcher's refusals. Returns the launches of each run by kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_model
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.api import encdec_model
+    from repro_torch.obs import metrics
+    from repro_torch.serve import Engine, ServeConfig, greedy_generate
+
+    t_phase = time.perf_counter()
+    h = lm_harness(torch, card, dev, plain_kernels, swapped, kernel, worst_rel)
+    paths = {}
+    products = []  # (live tiles, the other operand's padded width) a call
+
+    def counting_int8(a, b, scale, mask, *, trans_a=False, trans_b=False):
+        products.append(((mask != 0).sum(), b.shape[1] if trans_a else b.shape[0]))
+        return kernel["bsp_matmul_int8"](a, b, scale, mask, trans_a=trans_a,
+                                         trans_b=trans_b)
+
+    # -- 14a: the kernel program through the launcher ----------------------
+    argv = ["--arch", AUDIO_ARCH, "--preset", "full", "--batch", str(ZOO_BATCH),
+            "--seq", str(AUDIO_SEQ), "--steps", str(AUDIO_STEPS), "--program",
+            AUDIO_PROGRAM]
+    log(f"phase 14a: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, total, peak = h.run("14a", lambda: lm_train.main(argv),
+                                 n_params=AUDIO_PARAMS)
+    model, cfg = trainer.model, trainer.model.cfg
+    check(cfg == get_model(AUDIO_ARCH).cfg and cfg.remat
+          and all(p.dtype == torch.bfloat16 for p in trainer.net.parameters()),
+          "14a: not whisper-small's full configuration in bf16 with remat")
+    check(len(h.steps_seen) == AUDIO_STEPS, f"14a: {len(h.steps_seen)} steps")
+    ms = [m for _, m, _, _ in h.steps_seen]
+    log(f"phase 14a: {AUDIO_ARCH} (the reference's count {model.param_count}), "
+        f"{cfg.n_layers} + {cfg.n_layers} blocks, {ZOO_BATCH} x {cfg.n_frames} "
+        f"frames and {ZOO_BATCH} x {AUDIO_SEQ} tokens; AdamW moments f32; off "
+        f"step 0 {ms[0]:.3f} ms (first-use costs), kernel steps "
+        f"{min(ms[2:]):.3f}-{max(ms[2:]):.3f} ms (step 1 {ms[1]:.3f} ms); "
+        f"launches over the run {nonzero(total)}, {zoo_kernel_step(cfg)} a kernel "
+        f"step (lm_head on the kernel); peak device memory {peak / 2**30:.2f} "
+        f"GiB ({card})")
+    paths[f"{AUDIO_ARCH} kernel {AUDIO_STEPS} steps ({ZOO_FIRST_KERNEL_STEP} off)"] = total
+    batch = lm_train.batch_fn_for(model, ZOO_BATCH, AUDIO_SEQ, dev)(
+        ZOO_FIRST_KERNEL_STEP)
+    products.clear()
+    with swapped({"bsp_matmul_int8": counting_int8}):
+        prof = profile_step(
+            torch, lambda: trainer.train_step(batch, ZOO_FIRST_KERNEL_STEP),
+            card, f"{AUDIO_ARCH} kernel step", steps=1, phase="14a",
+            what=f"one {AUDIO_ARCH} training step, variant=kernel ({ZOO_BATCH} x "
+                 f"{cfg.n_frames} frames, {ZOO_BATCH} x {AUDIO_SEQ} tokens, bf16, "
+                 f"remat, AdamW)", host=False)
+    # the warm-up step and the profiled one: the same products
+    ops_step = sum(2 * int(n) * 128 * 128 * w for n, w in products) / 2
+    bound = ops_step / INT8_OPS_PER_S * 1e3
+    if prof is not None:
+        rows, _ = prof
+        int8_ms = sum(r[0] for r in rows if "bsp_int8_kernel" in r[2])
+        log(f"phase 14a: the int8 products of a kernel step: {int8_ms:.3f} ms of "
+            f"device time over {len(products) // 2} products, bound {bound:.3f} ms "
+            f"({ops_step:.4g} operations on the live 128 x 128 tiles at "
+            f"{INT8_OPS_PER_S / 1e12:.0f} TOP/s; {100 * bound / int8_ms:.1f}% of "
+            f"peak) ({card})")
+    else:
+        log(f"phase 14a: the int8 products' device time not measured; bound "
+            f"{bound:.3f} ms ({card})")
+
+    # the kernels at the ragged shapes of a kernel step, captured and held
+    # against their plain versions bit for bit
+    ragged = (cfg.n_frames * ZOO_BATCH, cfg.vocab, -(-cfg.n_frames * ZOO_BATCH // 128) * 128,
+              -(-cfg.vocab // 128) * 128)
+    nsd_calls, int8_calls = {}, {}
+
+    def capture_nsd(g, delta, **kw):
+        if set(g.shape) & set(ragged) and tuple(g.shape) not in nsd_calls:
+            nsd_calls[tuple(g.shape)] = (g.clone(), delta.clone(), dict(kw))
+        return kernel["nsd_quant"](g, delta, **kw)
+
+    def capture_int8(a, b, scale, mask, *, trans_a=False, trans_b=False):
+        key = (tuple(a.shape), tuple(b.shape), trans_a)
+        if (set(a.shape) | set(b.shape)) & set(ragged) and key not in int8_calls:
+            int8_calls[key] = (a.clone(), b.clone(), scale.clone(), mask.clone(),
+                               dict(trans_a=trans_a, trans_b=trans_b))
+        return kernel["bsp_matmul_int8"](a, b, scale, mask, trans_a=trans_a,
+                                         trans_b=trans_b)
+
+    with swapped({"nsd_quant": capture_nsd, "bsp_matmul_int8": capture_int8}):
+        h.step_grads(trainer, batch, ZOO_FIRST_KERNEL_STEP)
+    for (T, N), (g, delta, kw) in sorted(nsd_calls.items()):
+        same("nsd_quant", kernel["nsd_quant"](g, delta, **kw),
+             plain["nsd_quant"](g, delta, **kw), f"14a whisper cotangent {T}x{N}")
+    check(any(T == cfg.n_frames * ZOO_BATCH for T, _ in nsd_calls)
+          and any(N == cfg.vocab for _, N in nsd_calls),
+          f"14a: ragged cotangents captured {sorted(nsd_calls)}")
+    ks_seen = []
+    for (sa, sb, ta), (a, b, scale, mask, kw) in sorted(int8_calls.items()):
+        K = sa[0] if ta else sa[1]
+        ks_seen.append(K)
+        same("bsp_matmul_int8", (kernel["bsp_matmul_int8"](a, b, scale, mask, **kw),),
+             (plain["bsp_matmul_int8"](a, b, scale, mask, **kw),),
+             f"14a whisper {'dW' if ta else 'dx'} A {sa} B {sb} K {K}")
+    check({ragged[2], ragged[3]} <= set(ks_seen), f"14a: K captured {sorted(set(ks_seen))}")
+    log(f"phase 14a: the NSD kernel at the ragged cotangents "
+        f"{sorted(nsd_calls)} and the int8 product at {len(int8_calls)} ragged "
+        f"shapes (K {sorted(set(ks_seen))}) bit for bit against their plain "
+        f"versions")
+    del nsd_calls, int8_calls
+    h.grad_check(trainer, "14a", seq=AUDIO_SEQ)
+    h.release(trainer)
+    trainer = None
+
+    # -- 14b: the nsd residual store ---------------------------------------
+    n_dense = zoo_kernel_step(cfg)["nsd_quant"]
+    # remat: each block's dense encodes its input in the forward and again
+    # in the block's rerun; lm_head, outside the blocks, once
+    nsd_step = {"nsd_quant": 3 * n_dense - 1, "bsp_matmul_int8": 2 * n_dense,
+                "levels_compact": 2 * n_dense - 1, "levels_expand": n_dense}
+    argv = ["--arch", AUDIO_ARCH, "--preset", "full", "--batch", str(ZOO_BATCH),
+            "--seq", str(AUDIO_SEQ), "--steps", str(AUDIO_NSD_STEPS), "--program",
+            AUDIO_NSD_PROGRAM]
+    log(f"phase 14b: python -m repro_torch.launch.train {' '.join(argv)}")
+    trainer, nsd_total, peak = h.run("14b", lambda: lm_train.main(argv),
+                                     n_params=AUDIO_PARAMS,
+                                     want=lambda cfg, step: nsd_step)
+    paths[f"{AUDIO_ARCH} nsd {AUDIO_NSD_STEPS} steps"] = nsd_total
+    trainer.opt_state = None
+    prog = trainer.program
+    trainer.program = prog.replace(base=prog.base.replace(collect_stats=True))
+    batch = lm_train.batch_fn_for(model, ZOO_BATCH, AUDIO_SEQ, dev)(AUDIO_NSD_STEPS)
+    _, grads_k, sp_k = h.step_grads(trainer, batch, AUDIO_NSD_STEPS)
+    comp_k = metrics.overall_residual_compression()
+    with plain_kernels():
+        build.reset_launches()
+        _, grads_p, sp_p = h.step_grads(trainer, batch, AUDIO_NSD_STEPS)
+        comp_p = metrics.overall_residual_compression()
+        check(not any(build.LAUNCHES.values()), "14b: the plain run launched a kernel")
+    worst = worst_rel(grads_k, grads_p, f"14b {AUDIO_ARCH} nsd residuals")
+    check(abs(comp_k - comp_p) <= COMPRESSION_BAND * comp_p,
+          f"14b: residual_compression {comp_k} vs plain {comp_p}")
+    check(abs(sp_k - sp_p) <= SPARSITY_BAND, f"14b: sparsity {sp_k} vs plain {sp_p}")
+    log(f"phase 14b: {nsd_step} a step (the cotangents, two encodes a block's "
+        f"dense, one for lm_head's; one decode a dense); launches over the run "
+        f"{nonzero(nsd_total)}; residual_compression {comp_k} (plain versions "
+        f"{comp_p}); sparsity {sp_k:.3f}% (plain {sp_p:.3f}%); worst relative L2 "
+        f"gradient difference kernel vs plain {worst}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({card})")
+    h.release(trainer, grads_k, grads_p)
+    trainer = grads_k = grads_p = None
+
+    # -- 14c: serving through greedy_generate ------------------------------
+    net = model.init(0, dev)
+    frames = lm_train.batch_fn_for(model, 1, AUDIO_PROMPT, dev)(0)["frames"]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=AUDIO_PROMPT)
+    build.reset_launches()
+    greedy_generate(model, net, prompt, 2, max_len=64, frames=frames)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, net, prompt, AUDIO_NEW, max_len=64, frames=frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(toks) == AUDIO_NEW and all(0 <= t < cfg.vocab for t in toks),
+          f"14c: tokens {toks}")
+    check(not any(build.LAUNCHES.values()), "14c: a kernel launched in serving")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.prefill(net, torch.as_tensor(prompt[None], device=dev), 64, frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    log(f"phase 14c: greedy_generate(whisper-small, prompt of {AUDIO_PROMPT}, "
+        f"{AUDIO_NEW} new tokens, frames 1 x {cfg.n_frames} x {cfg.d_model}): "
+        f"{AUDIO_NEW / seconds:.2f} tokens/s over {seconds:.3f} s (the encoder, the "
+        f"cross K/V and the prompt's prefill {prefill_s:.3f} s of it) ({card})")
+    seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]])[None], device=dev)
+    for dtype, m_, net_ in (("bf16", model, net), ("f32", None, None)):
+        if m_ is None:
+            m_ = encdec_model(dataclasses.replace(cfg, dtype=torch.float32))
+            net_ = m_.init(0, dev)
+            net_.load_state_dict(net.state_dict())
+        with torch.no_grad():
+            lg, cache, t = m_.prefill(net_, seq[:, :AUDIO_PROMPT], 64, frames)
+            stepped = [lg[0]]
+            for i in range(AUDIO_PROMPT, seq.shape[1]):
+                t += 1
+                lg, cache = m_.decode_step(net_, cache, seq[:, i:i + 1], t)
+                stepped.append(lg[0])
+            stepped = torch.cat(stepped).float()
+            full = m_.forward(net_, {"frames": frames, "tokens": seq})[0].float()
+        check(bool(torch.isfinite(stepped).all() and torch.isfinite(full).all()),
+              f"14c {dtype}: logits not finite")
+        rel = float((stepped - full).norm() / full.norm())
+        worst_pos = float(((stepped - full).norm(dim=-1) / full.norm(dim=-1)).max())
+        agree = int((stepped.argmax(-1) == full.argmax(-1)).sum())
+        check(rel <= AUDIO_LOGIT_BAND[dtype],
+              f"14c {dtype}: prefill + decode logits relative L2 {rel} from the "
+              f"forward's > {AUDIO_LOGIT_BAND[dtype]}")
+        if dtype == "bf16":
+            check(stepped[AUDIO_PROMPT - 1:].argmax(-1).tolist() == toks,
+                  "14c: the decode's argmax differs from greedy_generate's tokens")
+        log(f"phase 14c: {dtype} prefill + {seq.shape[1] - AUDIO_PROMPT} decode steps "
+            f"against the teacher-forced forward over the same {seq.shape[1]} "
+            f"tokens: logits relative L2 {rel:.3e} (band {AUDIO_LOGIT_BAND[dtype]}), "
+            f"worst position {worst_pos:.3e}, argmax equal at {agree} of "
+            f"{seq.shape[1]} positions")
+    m_ = net_ = cache = stepped = full = None
+    try:
+        Engine(model, net, ServeConfig(max_batch=1, max_len=64))
+    except ValueError as e:
+        check("greedy_generate" in str(e), f"14c: the engine raised {e}")
+    else:
+        check(False, "14c: the engine accepted the audio family")
+    h.release(net)
+    net = None
+    try:
+        launch_serve.main(["--arch", AUDIO_ARCH, "--preset", "full"])
+    except ValueError as e:
+        check("greedy_generate" in str(e), f"14c: the serve launcher raised {e}")
+    else:
+        check(False, "14c: the serve launcher served the audio family")
+    log("phase 14c: Engine and python -m repro_torch.launch.serve --arch "
+        "whisper-small --preset full each raise the reference's ValueError "
+        "(serve through greedy_generate(model, ..., frames=...))")
+    h.release()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return paths
 
 
 def main() -> int:
@@ -3769,7 +4064,14 @@ def main() -> int:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in family_launches.items()})
 
-    # -- phases 14 and 15 --------------------------------------------------
+    # -- phase 14: the audio family -----------------------------------------
+    audio_launches = phase14(torch, card, dev, plain_kernels, swapped, kernel,
+                             plain, worst_rel, same)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in audio_launches.items()})
+
+    # -- phases 15 and 16 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,14 +19,18 @@ without ``w_gate``, the MoE block's ``moe.router``, ``moe.w_gate`` /
 ``head.vit_proj1`` / ``vit_proj2``, the stacked layers' nested ``mixer``
 (the Mamba-2 mixer, its conv weight (d_conv, conv_dim) as the reference
 lays it out), ``attn`` and ``mlp`` subtrees, and the hybrid's
-``head.meta_tokens``.
+``head.meta_tokens``. The encoder-decoder's two stacks, ``enc`` and
+``dec`` (``enc.{i}.attn.wq``, ``dec.{i}.xattn.wk``, ``dec.{i}.lnx_s``, ...),
+split and re-stack as ``layers`` does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+STACKS = ("layers", "enc", "dec")  # the reference's scanned block stacks
 
 
 def params_from_jax(tree: Dict[str, np.ndarray], *,
@@ -74,9 +78,10 @@ def lm_params_from_jax(tree: Dict, *, device: Optional[torch.device] = None
     out = {}
     for name, a in _flatten(tree):
         a = np.asarray(a)
-        if name.startswith("layers."):
+        stack, rest = name.split(".", 1)
+        if stack in STACKS:
             for i in range(a.shape[0]):
-                out[f"layers.{i}.{name[len('layers.'):]}"] = tensor(a[i])
+                out[f"{stack}.{i}.{rest}"] = tensor(a[i])
         else:
             out[name] = tensor(a)
     return out
@@ -86,24 +91,26 @@ def lm_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`lm_params_from_jax`: the port's named
     parameters -> the reference's nested tree, blocks stacked (bf16 as f32
     arrays, which hold it exactly)."""
-    per_layer: Dict[str, Dict[int, np.ndarray]] = {}
+    per_layer: Dict[Tuple[str, str], Dict[int, np.ndarray]] = {}
     tree: Dict = {}
+
+    def put(path: str, a: np.ndarray):
+        node = tree
+        *keys, leaf = path.split(".")
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+
     for name, t in params.items():
         a = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
             else t.detach().cpu().numpy()
-        if name.startswith("layers."):
-            i, rest = name[len("layers."):].split(".", 1)
-            per_layer.setdefault(rest, {})[int(i)] = a
-            continue
-        node = tree
-        *path, leaf = name.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = a
-    for rest, by_layer in per_layer.items():
-        node = tree.setdefault("layers", {})
-        *path, leaf = rest.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = np.stack([by_layer[i] for i in range(len(by_layer))])
+        stack, rest = name.split(".", 1)
+        if stack in STACKS:
+            i, rest = rest.split(".", 1)
+            per_layer.setdefault((stack, rest), {})[int(i)] = a
+        else:
+            put(name, a)
+    for (stack, rest), by_layer in per_layer.items():
+        put(f"{stack}.{rest}",
+            np.stack([by_layer[i] for i in range(len(by_layer))]))
     return tree

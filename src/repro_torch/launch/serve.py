@@ -22,8 +22,10 @@ reference's engine serves it), SSM (mamba2-370m) and hybrid (hymba-1.5b)
 families; a windowed config (gemma3-4b, hymba-1.5b) and the SSM's
 per-layer states take dense buffers (``page=0``, the default), a local
 layer's ring of ``min(window, max_len)`` slots (hymba: behind its pinned
-meta slots). Runs on CUDA unless ``--device cpu``. The reference's
-whisper-small is refused, naming ROADMAP.md section 1, item 6.
+meta slots). Runs on CUDA unless ``--device cpu``. The audio family
+(whisper-small) is parsed and then refused by its worker's engine with the
+reference's ``ValueError``: each request needs its own encoder features,
+and ``repro_torch.serve.greedy_generate(..., frames=...)`` serves it.
 """
 from __future__ import annotations
 
@@ -32,8 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_model,
-                                 get_smoke_model)
+from repro_torch.configs import ARCH_IDS, get_model, get_smoke_model
 from repro_torch.device import resolve_device
 from repro_torch.obs.monitor import MonitorSuite, ServeMonitor
 from repro_torch.obs.runlog import run_obs
@@ -51,8 +52,7 @@ def parse_serve_spec(spec: str) -> List[Tuple[str, Dict[str, str]]]:
 
     Grammar mirrors ``--program``: a section starts at the token pair
     ``worker <arch>:``; its clauses are ``;``-separated ``key=value``
-    pairs and extend to the next ``worker`` marker. An arch of the
-    reference that the port lacks raises ``NotImplementedError``.
+    pairs and extend to the next ``worker`` marker.
     """
     toks = spec.split()
     if not toks or toks[0] != "worker":
@@ -71,10 +71,8 @@ def parse_serve_spec(spec: str) -> List[Tuple[str, Dict[str, str]]]:
         i += 2
     sections = []
     for arch, clause_toks in out:
-        if arch not in ARCH_IDS + NOT_PORTED:
+        if arch not in ARCH_IDS:
             raise ValueError(f"unknown arch {arch!r}; one of {ARCH_IDS}")
-        if arch in NOT_PORTED:
-            get_smoke_model(arch)  # raises NotImplementedError, naming item 6
         kv: Dict[str, str] = {}
         for clause in " ".join(clause_toks).split(";"):
             clause = clause.strip()
@@ -107,7 +105,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve", default=None,
                     help="worker spec: 'worker <arch>: k=v;k=v worker ...'")
-    ap.add_argument("--arch", choices=ARCH_IDS + NOT_PORTED, default=None,
+    ap.add_argument("--arch", choices=ARCH_IDS, default=None,
                     help="single-worker shorthand")
     ap.add_argument("--preset", choices=["smoke", "full"], default="smoke")
     ap.add_argument("--requests", type=int, default=4)

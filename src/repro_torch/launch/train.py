@@ -7,12 +7,14 @@
 Counterpart of ``repro.launch.train``. Archs: gemma-2b, gemma3-4b,
 qwen2.5-32b, minitron-8b (dense), moonshot-v1-16b-a3b and dbrx-132b (MoE),
 internvl2-2b (VLM: each batch carries 256 patch embeddings ahead of its
-``--seq`` tokens), mamba2-370m (SSM) and hymba-1.5b (hybrid); the
-reference's whisper-small is refused, naming ROADMAP.md section 1, item 6.
+``--seq`` tokens), mamba2-370m (SSM), hymba-1.5b (hybrid) and
+whisper-small (audio: each batch carries the encoder's 1500 frame
+embeddings beside its ``--seq`` decoder tokens, whose learned positions
+end at 448).
 Presets: ``smoke``, the arch's reduced f32 configuration (CPU-sized);
 ``full``, its published widths (bf16, remat per block where the config
-asks; gemma-2b, gemma3-4b, internvl2-2b, mamba2-370m and hymba-1.5b fit
-one 80 GB card with AdamW, the others' state does not: a
+asks; gemma-2b, gemma3-4b, internvl2-2b, mamba2-370m, hymba-1.5b and
+whisper-small fit one 80 GB card with AdamW, the others' state does not: a
 depth-cut run builds ``dataclasses.replace(cfg, n_layers=...)`` and drives
 ``repro_torch.train.Trainer``, as ``chip_smoke.py`` does). The dither
 comes from ``--dither``/``--s`` as the base policy, and the ``dither:``
@@ -48,8 +50,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import (ARCH_IDS, NOT_PORTED, get_model,
-                                 get_smoke_model)
+from repro_torch.configs import ARCH_IDS, get_model, get_smoke_model
 from repro_torch.core.policy import DitherPolicy
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
 from repro_torch.device import resolve_device
@@ -63,30 +64,34 @@ log = get_logger("repro_torch.train")
 
 def batch_fn_for(model, batch: int, seq: int, device):
     """Step -> the synthetic token batch of that step: tokens and labels
-    (batch, seq), and for the VLM ``patch_embeds`` (batch, vlm_patches,
-    vit_dim) f32, normal(0, 1) from ``np.random.default_rng(step)``, as the
+    (batch, seq), and for the audio family ``frames`` (batch, n_frames,
+    d_model), for the VLM ``patch_embeds`` (batch, vlm_patches, vit_dim),
+    f32, normal(0, 1) from ``np.random.default_rng(step)``, as the
     reference's (the visual prefix comes on top of the ``seq`` text
     positions)."""
-    if model.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+    if model.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise NotImplementedError(f"batch_fn_for: family {model.family!r}")
     cfg = model.cfg
     tcfg = TokenStreamConfig(vocab=cfg.vocab, seq_len=seq, batch=batch)
+    key = shape = None
+    if model.family == "audio":
+        key, shape = "frames", (cfg.n_frames, cfg.d_model)
+    elif model.family == "vlm" and cfg.vlm_patches:
+        key, shape = "patch_embeds", (cfg.vlm_patches, cfg.vit_dim)
 
     def fn(step: int):
         b = token_batch(tcfg, step, device=device)
-        if model.family == "vlm" and cfg.vlm_patches:
-            pe = np.random.default_rng(step).normal(
-                0, 1, (batch, cfg.vlm_patches, cfg.vit_dim)).astype(np.float32)
-            b["patch_embeds"] = torch.from_numpy(pe).to(resolve_device(device))
+        if key is not None:
+            a = np.random.default_rng(step).normal(
+                0, 1, (batch,) + shape).astype(np.float32)
+            b[key] = torch.from_numpy(a).to(resolve_device(device))
         return b
     return fn
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # the reference's archs the port lacks are accepted and refused by the
-    # registry, naming the ROADMAP item
-    ap.add_argument("--arch", choices=ARCH_IDS + NOT_PORTED, required=True)
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--preset", choices=["smoke", "full"], default="smoke")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

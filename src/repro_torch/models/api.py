@@ -1,21 +1,23 @@
 """The model interface the LM trainer, launchers and serving engine talk to.
 
 Counterpart of ``repro.models.api``'s ``Model``, ``lm_model`` (the dense,
-MoE and VLM families), ``ssm_model`` and ``hybrid_model``. The port's
+MoE and VLM families), ``ssm_model``, ``hybrid_model`` and
+``encdec_model`` (the audio family). The port's
 parameters are an ``nn.Module``: ``init(seed, device)`` builds one,
 ``loss(net, batch, ctx=None)`` and ``forward(net, batch, ctx=None)`` run it
-(a VLM batch may carry ``patch_embeds``); for serving,
+(a VLM batch may carry ``patch_embeds``, an audio batch carries
+``frames``); for serving,
 ``init_cache(batch, max_len, device=None)``, ``decode_step(net, cache,
 token, t, t_host=None)`` and ``prefill(net, tokens, max_len, **extras)``
 (the reference path of ``repro_torch.serve.greedy_generate``; extras:
-``patch_embeds`` for the VLM). The audio family (whisper-small) comes
-with its model (ROADMAP.md section 1, item 6).
+``patch_embeds`` for the VLM, ``frames`` for the audio family).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import transformer as tf_mod
@@ -24,7 +26,7 @@ from repro_torch.models import transformer as tf_mod
 @dataclasses.dataclass
 class Model:
     name: str
-    family: str  # dense | moe | vlm | ssm | hybrid
+    family: str  # dense | moe | vlm | ssm | hybrid | audio
     cfg: Any
     init: Callable  # (seed, device) -> nn.Module
     loss: Callable  # (net, batch, ctx=None) -> 0-d f32 tensor
@@ -37,11 +39,6 @@ class Model:
 
 
 def lm_model(cfg: tf_mod.LMConfig, family: str) -> Model:
-    if family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"lm_model: family {family!r} is not ported yet: "
-            f"{tf_mod.ZOO_TODO}")
-
     def loss(net, batch, ctx=None):
         return tf_mod.loss_fn(net, batch, ctx=ctx)
 
@@ -82,3 +79,19 @@ def ssm_model(cfg: mamba_mod.SSMLMConfig) -> Model:
 def hybrid_model(cfg: hybrid_mod.HybridConfig) -> Model:
     return _stateful_model(hybrid_mod, cfg, "hybrid",
                            hybrid_mod.init_hybrid_lm)
+
+
+def encdec_model(cfg: encdec_mod.EncDecConfig) -> Model:
+    return Model(name=cfg.name, family="audio", cfg=cfg,
+                 init=lambda seed, device: encdec_mod.init_encdec(
+                     cfg, seed=seed, device=device),
+                 loss=lambda net, batch, ctx=None: encdec_mod.loss_fn(
+                     net, batch, ctx=ctx),
+                 forward=lambda net, batch, ctx=None: encdec_mod.forward(
+                     net, batch, ctx=ctx),
+                 init_cache=lambda b, s, device=None: encdec_mod.init_cache(
+                     cfg, b, s, device=device),
+                 decode_step=encdec_mod.decode_step,
+                 prefill=encdec_mod.prefill,
+                 param_count=cfg.param_count,
+                 active_param_count=cfg.active_param_count)

@@ -1,6 +1,7 @@
-"""The layers of the decoder LMs: initialisation, RMSNorm, the activations,
-rotary embedding, grouped-query attention (q/k/v biases, sliding windows),
-the gated (SwiGLU, GeGLU) and squared-ReLU MLPs and the embedding.
+"""The layers of the LMs: initialisation, RMSNorm and layer norm, the
+activations, rotary embedding (none at theta <= 0), grouped-query
+attention (q/k/v biases, sliding windows) and cross-attention, the gated
+(SwiGLU, GeGLU), squared-ReLU and GELU MLPs and the embedding.
 
 Counterpart of the parts of ``repro.models.layers`` that the LMs call.
 Every weight-bearing product goes through ``repro_torch.core.dithered.dense``,
@@ -19,8 +20,12 @@ pinned prefix of P positions (hymba's meta tokens), P fixed slots followed
 by a ring of S_buf - P: position p < P at slot p, a later one at P + (p -
 P) mod (S_buf - P); the prefix stays attendable whatever the window.
 
-Not ported yet (ROADMAP.md section 1, item 6): layer norm and soft-capping
-(no ported arch sets them), cross-attention.
+Cross-attention (the encoder-decoder's, ``repro_torch.models.encdec``):
+:func:`cross_attention` projects its keys and values from the encoder's
+states, with no mask and no rotary embedding; at decode time
+:func:`cross_attention_cached` reads them precomputed.
+
+Not ported yet: soft-capping (no reference config sets it).
 """
 from __future__ import annotations
 
@@ -85,6 +90,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * scale + bias over the last axis, in
+    f32 (the population variance, the mean of the squared deviations, as
+    ``jnp.var``), cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
 def _relu2(x: torch.Tensor) -> torch.Tensor:
     return torch.square(F.relu(x))
 
@@ -122,7 +139,10 @@ def rope_table(positions: torch.Tensor, head_dim: int,
     """The rotation of :func:`apply_rope` at ``positions`` (..., S): f32
     (cos, sin) of the angles position x frequency, each (..., S, 1, D)
     with its halves laid out as [cos, cos] and [-sin, sin]; computed once
-    for every head and layer that shares the positions."""
+    for every head and layer that shares the positions. None at theta <= 0
+    (no rotary embedding: absolute or learned positions)."""
+    if theta <= 0:
+        return None
     ang = positions[..., None].to(torch.float32) * _freqs_on(
         head_dim, theta, positions.device)
     ang = ang[..., None, :]  # the head axis
@@ -137,7 +157,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     + x1 sin), in f32, cast back. With the table's halves that is x cos +
     swap(x) sin, the same products and sums (a - b is a + (-b) exactly).
     ``table``: the positions' :func:`rope_table`, when the caller has
-    it."""
+    it. theta <= 0 disables it: x is returned as it is (whisper)."""
+    if theta <= 0:
+        return x
     cos, sin = (rope_table(positions, x.shape[-1], theta) if table is None
                 else table)
     xf = x.to(torch.float32)
@@ -259,6 +281,40 @@ def attention(p: nn.ParameterDict, h: torch.Tensor, pos_b: torch.Tensor,
     return dense(y, p["wo"], ctx=ctx, name=f"{name}.o"), (k, v)
 
 
+def cross_attention(p: nn.ParameterDict, h: torch.Tensor,
+                    x_kv: torch.Tensor, n_heads: int, n_kv_heads: int,
+                    head_dim: int, *, ctx: Optional[DitherCtx] = None,
+                    name: str = "xattn") -> torch.Tensor:
+    """Cross-attention of h (B, S, d) over the encoder states x_kv (B, S_kv,
+    d): the dithered projections ``{name}.q`` of h, ``{name}.k`` and
+    ``.v`` of x_kv and ``.o``; no mask, no rotary embedding (the
+    reference's ``attention`` with ``x_kv``)."""
+    B, S = h.shape[:2]
+    S_kv = x_kv.shape[1]
+    q = dense(h, p["wq"], ctx=ctx, name=f"{name}.q")
+    k = dense(x_kv, p["wk"], ctx=ctx, name=f"{name}.k")
+    v = dense(x_kv, p["wv"], ctx=ctx, name=f"{name}.v")
+    y = _sdpa(q.reshape(B, S, n_heads, head_dim),
+              k.reshape(B, S_kv, n_kv_heads, head_dim),
+              v.reshape(B, S_kv, n_kv_heads, head_dim), None)
+    return dense(y.reshape(B, S, n_heads * head_dim), p["wo"], ctx=ctx,
+                 name=f"{name}.o")
+
+
+def cross_attention_cached(p: nn.ParameterDict, x: torch.Tensor, enc_kv,
+                           n_heads: int, head_dim: int, *,
+                           name: str = "xattn") -> torch.Tensor:
+    """Decode-time cross-attention of x (B, 1, d) over precomputed encoder
+    keys and values ``enc_kv`` = (K, V), each (B, S_kv, KV, hd), which it
+    does not write; no dither context (serving has no backward)."""
+    B, S = x.shape[:2]
+    q = dense(x, p["wq"], name=f"{name}.q").reshape(B, S, n_heads, head_dim)
+    K, V = enc_kv
+    y = _sdpa(q, K.to(q.dtype), V.to(q.dtype), None)
+    return dense(y.reshape(B, S, n_heads * head_dim), p["wo"],
+                 name=f"{name}.o")
+
+
 def _write_token(buf: torch.Tensor, new: torch.Tensor, write_at: torch.Tensor
                  ) -> torch.Tensor:
     """buf (B, S_buf, KV, hd) with row b's slot ``write_at[b]`` replaced by
@@ -289,7 +345,8 @@ def cached_attention(p: nn.ParameterDict, x: torch.Tensor, t: torch.Tensor,
 
     The projections run with no dither context (serving has no backward).
     ``rope``: the rotary table of ``decode_positions(t)``, which every
-    layer of a step shares (:func:`rope_table`). ``window``: a windowed
+    layer of a step shares (:func:`rope_table`; None at rope_theta <= 0,
+    where no rotary embedding is applied). ``window``: a windowed
     layer's size, on dense buffers only (the ring of its last positions;
     the mask holds the window as well, as the reference's does);
     ``prefix``: the pinned positions ahead of its ring (S_buf = window +
@@ -344,7 +401,8 @@ def mlp(p: nn.ParameterDict, x: torch.Tensor, kind: str, *,
         ctx: Optional[DitherCtx] = None, name: str = "mlp") -> torch.Tensor:
     """down(act(gate(x)) * up(x)) for the gated kinds (SiLU for
     ``swiglu``, GELU in its tanh form for ``geglu``), down(act(up(x)))
-    for the others (``relu2``: the squared ReLU)."""
+    for the others (``relu2``: the squared ReLU; ``gelu`` in its tanh
+    form)."""
     if kind in GATED:
         g = dense(x, p["w_gate"], ctx=ctx, name=f"{name}.gate")
         u = dense(x, p["w_up"], ctx=ctx, name=f"{name}.up")

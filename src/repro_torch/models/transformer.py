@@ -47,9 +47,9 @@ KV, hd), a local layer's a ring of ``min(window, max_len)`` slots, or a
 paged cache (``repro_torch.serve.kvcache``, global layers only). The cache
 dtype is the model's.
 
-Not ported yet: the settings that no ported arch sets (``norm``,
-``softcap``, ``rope_scaling``; ROADMAP.md section 1, item 6), and the cache
-specs of the dry run (item 9).
+Not ported: the settings that no reference config sets (``norm``,
+``softcap``, ``rope_scaling``), and the cache specs of the dry run
+(ROADMAP.md section 1, item 9).
 """
 from __future__ import annotations
 
@@ -67,7 +67,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, init_moe, moe_layer
 
-ZOO_TODO = "ROADMAP.md section 1, item 6 (the LM zoo)"
 LAYER_TAG = "L"  # the reference's scan tag: every block's layers share it
 
 

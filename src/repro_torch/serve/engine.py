@@ -118,6 +118,10 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 class Engine:
     def __init__(self, model: Model, params: Any, cfg: ServeConfig,
                  name: str = "engine"):
+        if model.family == "audio":
+            raise ValueError(
+                "encoder-decoder models need per-request encoder features; "
+                "serve them through greedy_generate(model, ..., frames=...)")
         if cfg.chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.model = model
@@ -382,7 +386,8 @@ class Engine:
 def greedy_generate(model: Model, params, prompt, n_new: int,
                     max_len: int = 256, **extras) -> List[int]:
     """Single-sequence reference path: ``Model.prefill`` (``extras``, such
-    as a VLM's ``patch_embeds``, go to it) + greedy decode. The engine's
+    as a VLM's ``patch_embeds`` or the audio family's ``frames``, go to it)
+    + greedy decode; the only serving path of the audio family. The engine's
     fp32-page output is gated token for token against this in
     ``repro_torch.train.serve_bench``."""
     if n_new <= 0:

@@ -40,7 +40,7 @@ from repro.core import schedule as jsched  # noqa: E402
 from repro.data.synthetic import TokenStreamConfig as JTok, token_batch as j_token_batch  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models.api import lm_model as j_lm_model  # noqa: E402
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_model, get_smoke_model  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_model, get_smoke_model  # noqa: E402
 from repro_torch.convert import lm_params_from_jax, lm_params_to_jax  # noqa: E402
 from repro_torch.core import dithered, nsd, schedule  # noqa: E402
 from repro_torch.core.policy import DitherCtx, DitherPolicy  # noqa: E402
@@ -127,20 +127,6 @@ def test_gemma_config_matches_reference(which):
     if which == "full":
         assert m.param_count == 2_506_172_416  # about 2.51 B
     assert set(ARCH_IDS) <= set(J_ARCH_IDS)
-
-
-@pytest.mark.parametrize("arch", sorted(set(J_ARCH_IDS) - set(ARCH_IDS)))
-def test_unported_configurations_raise(arch):
-    """The reference's archs the port lacks (the audio family's
-    whisper-small) are refused by the registry and the launcher, naming the
-    ROADMAP item."""
-    assert arch in NOT_PORTED
-    for get in (get_model, get_smoke_model):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md section 1, item 6"):
-            get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 6"):
-        launch_train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
 
 
 def test_parameter_tree_and_conversion():

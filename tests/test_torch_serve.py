@@ -624,11 +624,17 @@ def test_parse_serve_spec_matches_reference(spec):
     ("worker gemma-2b: widgets=7", ValueError, "unknown serve key"),
     ("worker gemma-2b: batch", ValueError, "not key=value"),
     ("worker gemma-2b", ValueError, "followed by"),
-    ("worker whisper-small: batch=2", NotImplementedError, "section 1, item 6"),
+    ("worker whisper-small: batch=2", ValueError, "greedy_generate"),
 ])
 def test_parse_serve_spec_rejects(spec, err, match):
+    """A malformed spec raises in the parser; whisper-small's parses, as
+    in the reference, and its worker's engine raises the reference's
+    ``ValueError`` (the audio family needs per-request encoder frames)."""
     with pytest.raises(err, match=match):
-        launch_serve.parse_serve_spec(spec)
+        for arch, kv in launch_serve.parse_serve_spec(spec):
+            m = get_smoke_model(arch)
+            Supervisor().add_worker(arch, m, m.init(0, "cpu"),
+                                    launch_serve.serve_config(kv))
 
 
 def test_launcher_serves_on_the_cpu_with_a_run_dir(tmp_path, capsys):
@@ -648,7 +654,7 @@ def test_launcher_serves_on_the_cpu_with_a_run_dir(tmp_path, capsys):
     assert rows and {r["tag"] for r in rows} == {"gemma-2b"}
     assert sum(r["gen_tokens"] for r in rows) == 15
     assert "monitor" not in streams  # a healthy run trips nothing
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="greedy_generate"):
         launch_serve.main(["--arch", "whisper-small", "--device", "cpu"])
 
 

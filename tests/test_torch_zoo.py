@@ -38,7 +38,7 @@ from repro.data.synthetic import TokenStreamConfig as JTok, token_batch as j_tok
 from repro.models import layers as JL  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.serve import Engine as JEngine, Request as JRequest, ServeConfig as JServeConfig  # noqa: E402
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_model, get_smoke_model  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_model, get_smoke_model  # noqa: E402
 from repro_torch.convert import lm_params_from_jax, lm_params_to_jax  # noqa: E402
 from repro_torch.core import nsd, schedule  # noqa: E402
 from repro_torch.core.policy import DitherCtx, DitherPolicy  # noqa: E402
@@ -133,13 +133,14 @@ def test_config_matches_reference(arch, which):
 
 
 def test_registry_holds_the_dense_and_moe_families():
-    """The registry holds every arch of the reference but whisper-small
-    (the dense, MoE and VLM families here, the SSM and hybrid ones in
-    tests/test_torch_ssm.py)."""
-    assert set(ARCH_IDS) == {"gemma-2b", "mamba2-370m", "hymba-1.5b"} | set(ZOO)
-    assert set(NOT_PORTED) == set(J_ARCH_IDS) - set(ARCH_IDS) == {
-        "whisper-small"}
-    assert NOT_PORTED == ("whisper-small",)
+    """The registry holds every arch of the reference, in its order: the
+    dense, MoE and VLM families (here), the SSM and hybrid ones
+    (tests/test_torch_ssm.py) and the audio family
+    (tests/test_torch_encdec.py)."""
+    assert ARCH_IDS == J_ARCH_IDS
+    assert set(ARCH_IDS) == {"gemma-2b", "mamba2-370m", "hymba-1.5b",
+                             "whisper-small"} | set(ZOO)
+    assert get_model("whisper-small").param_count == 238_450_944
     assert get_model("gemma3-4b").param_count == 3_879_907_840  # ~3.88 B
     assert get_model(VLM).param_count == 1_895_438_336  # the projector's in
     gemma3 = get_model("gemma3-4b").cfg
