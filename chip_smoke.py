@@ -348,7 +348,33 @@ Phases (any failure exits non-zero and prints no result):
          decode's argmax equal to the greedy tokens; ``Engine`` and
          ``python -m repro_torch.launch.serve --arch whisper-small`` each
          raise the reference's ``ValueError``;
-  15. print one JSON line naming the seven kernels (the NSD row carries its
+  15. data-parallel over processes (``repro_torch.launch.mesh``,
+     ``repro_torch.comm`` with a mesh): one node a process, 8 ranks
+     spawned on the one card over gloo (NCCL refuses two ranks on one
+     device), every message staged through pinned host memory:
+     15a. phase 6a's leaves through the process reduces, ring N = 4, hier
+         N = 8 in 2 pods, butterfly N = 8 in 4 pods and N = 6 in 3: every
+         rank's means and its wire, dense, ICI, DCN and peak-DCN bytes,
+         bound, hops and packs_per_segment equal the one-process
+         simulation's bit for bit; the packs the ranks received sum to the
+         telemetry's wire bytes less the dense leaves'; each rank's
+         launches are what its share implies (``mesh_rank_launches``: NSD
+         and compact a pack, expand an unpack); each rank's reduce time;
+     15b. ``make_ssgd_step(mesh=)`` on VGG11-CIFAR at full width,
+         variant=kernel, 32 images a node from ``ShardedLoader(mesh=)``,
+         N = 4, ``ring``, 3 steps: every rank's parameters and momenta
+         equal 6b's simulated step's bit for bit after each step; per rank
+         the launches (a node's backward, NSD 11 and int8 21, plus its
+         packs), host ms, the grad / reduce / update spans and the bytes
+         that crossed;
+     15c. ``repro_torch.launch.train --distributed`` at world size 1 on
+         NCCL (gemma-2b's smoke preset, 2 steps, batch 4 x 64): its losses
+         equal the run without the flag's bit for bit; then, in the same
+         process, a ``NodeMesh`` on NCCL at world size 1 (its barrier) and
+         15a's leaves reduced over it under ``ps`` and ``ring``, equal to
+         the one-process reduce of the one node bit for bit;
+     a rank's failure fails the phase;
+  16. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
      paged expand of phase 10b under ``serve_pages``, the pack row its
@@ -357,8 +383,8 @@ Phases (any failure exits non-zero and prints no result):
      phase 5's log gives the NSD row's bound by the padded definition too,
      9 bytes a padded element; every row's ``launches_by_path`` gives its
      launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11, 12,
-     13 and 14);
-  16. print the JSON result line last.
+     13, 14 and 15, phase 15's summed over the ranks);
+  17. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -456,6 +482,20 @@ TWO_LEVEL_REDUCES = (("hier", 8, 2), ("hier", 6, 3), ("butterfly", 8, 4),
 OVERLAP_BUCKET_BYTES = 262144  # the reference's overlap row
 # phase 11c: gemma-2b's smoke preset through the launcher, checkpointed
 LM_RESUME_BATCH, LM_RESUME_SEQ = 4, 64
+
+# phase 15: data-parallel over processes, one node a process, the ranks on
+# cuda:0 over gloo (NCCL refuses two ranks on one card). 15a: phase 6a's
+# leaves through the process reduces, (topology, nodes, pods); 15b: 6b's
+# VGG11 ring run, one node a rank; 15c: the launcher's --distributed on NCCL
+MESH_WORLD = 8
+MESH_REDUCES = (("ring", 4, 1), ("hier", 8, 2), ("butterfly", 8, 4),
+                ("butterfly", 6, 3))
+MESH_SSGD = ("vgg11-cifar", 4, "ring", 3)
+MESH_LM_ARGS = ["--arch", "gemma-2b", "--preset", "smoke", "--steps", "2",
+                "--batch", "4", "--seq", "64"]
+# 6b's simulated VGG11 ring steps (parameters and optimizer state after
+# each, on the host), the reference of 15b
+SIM_SSGD_STEPS = []
 
 # phase 7: gemma-2b at full width through the LM launcher (bf16, remat per
 # block, AdamW), 8 sequences of 128 tokens a step
@@ -908,6 +948,8 @@ def phase6(torch, card, dev, plain_kernels, worst_rel):
                     f"{float(m.get('comm_error_bound', 0.0))}; peak device memory "
                     f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB "
                     f"above the {held / 2**20:.1f} MiB held before the step ({card})")
+                if (mname, n, topology, steps) == MESH_SSGD:
+                    SIM_SSGD_STEPS.append(host_state(torch, net, state))
         finally:
             ssgd_mod.annotate = real_span
         path_launches[label] = total
@@ -2863,6 +2905,431 @@ def phase14(torch, card, dev, plain_kernels, swapped, kernel, plain, worst_rel,
     return paths
 
 
+def host_state(torch, net, state):
+    """The parameters and the optimizer state (flattened) on the host."""
+    def flat(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            else:
+                out[prefix + k] = (v.detach().to("cpu", copy=True)
+                                   if isinstance(v, torch.Tensor) else v)
+        return out
+    return {"params": {k: p.detach().to("cpu", copy=True)
+                       for k, p in net.named_parameters()},
+            "state": flat(state)}
+
+
+def mesh_rank_launches(topology: str, n: int, pods: int, index: int):
+    """(packs, unpacks) of one compressed leaf on rank ``index`` of a
+    process reduce: each pack one NSD and one wire compact launch, each
+    unpack one wire expand launch. The ring: N - 1 reduce-scatter packs and
+    the gather pack; N - 1 unpacks of what arrives, then all N segments.
+    The hierarchy: P packs on every rank (the ring's P - 1 and one tree
+    pack: up from a pod > 0, the root's from pod 0); P - 1 + P unpacks and
+    one a tree round in which the pod receives. The butterfly: the ring's,
+    the pre-fold's (ragged pods), the halving rounds' and the piece pack
+    (core pods); unpacks of the ring, the pre-fold received, the halving
+    rounds and phase 4's G2 pieces of each of the P segments."""
+    G, P = pods, n // pods
+    g = index // P
+    if topology == "ring":
+        return n, 2 * n - 1
+    if topology == "hier":
+        recv = sum(1 for r in range((G - 1).bit_length() if G > 1 else 0)
+                   if g % (2 << r) == 0 and g + (1 << r) < G)
+        return P, 2 * P - 1 + recv
+    m = G.bit_length() - 1
+    G2 = 1 << m
+    core = g < G2
+    packs = (P - 1) + (0 if core else 1) + ((m + 1) if core else 0)
+    unpacks = (P - 1) + (1 if g < G - G2 else 0) + (m if core else 0) + P * G2
+    return packs, unpacks
+
+
+def phase15_rank(rank, world, store_path, spec_path, out_dir):
+    """One rank of phase 15: joins the gloo group, runs 15a's reduces and
+    15b's SSGD steps (ranks beyond a case's size skip it), checks every
+    result against the simulation's, and saves its launches, bytes and
+    times. Any mismatch raises, which fails the whole spawn."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import comm
+    from repro_torch.comm.p2p import TRAFFIC
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import NodeTopology
+    from repro_torch.train.classifier import repeatable_f32
+
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", 0)  # the ranks share the one card
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    if cuda:
+        torch.cuda.set_device(dev)
+        repeatable_f32()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {}
+    try:
+        # -- 15a: the process reduces of phase 6a's leaves
+        grads = {k: v.to(dev) for k, v in spec["grads"].items()}
+        for (topology, n, pods), sim in zip(spec["reduces"], spec["sims"]):
+            group = None if n == world else dist.new_group(list(range(n)))
+            if rank >= n:
+                continue
+            mesh = NodeTopology(pods=pods, nodes_per_pod=n // pods).mesh(group)
+            pol = comm.CommPolicy(s=2.0, topology=topology, pods=pods,
+                                  overrides=REDUCE_OVERRIDES)
+            red = comm.reducer(pol, mesh)
+            g = {k: v[rank].contiguous() for k, v in grads.items()}
+            label = f"15a {topology} N={n} pods={pods} rank {rank}"
+            TRAFFIC.reset()
+            sync()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            means, tele, _ = red.reduce(g, SEED, 1)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(build.LAUNCHES)
+            for k, m in means.items():
+                check(torch.equal(m.cpu(), sim["means"][k]),
+                      f"{label}: mean of {k} differs from the simulation's")
+            for f in REDUCE_TELEMETRY:
+                got, want = float(getattr(tele, f)), sim["tele"][f]
+                check(got == want, f"{label}: {f} {got}, simulation {want}")
+            check((tele.n_hops, tele.packs_per_segment) == sim["hops"],
+                  f"{label}: hops {(tele.n_hops, tele.packs_per_segment)}")
+            if cuda:
+                n_comp = sum(pol.mode_for(k, v.numel()) != "dense"
+                             for k, v in g.items())
+                packs, unpacks = mesh_rank_launches(topology, n, pods, rank)
+                want = {"nsd_quant": n_comp * packs,
+                        "levels_compact": n_comp * packs,
+                        "levels_expand": n_comp * unpacks}
+                check(nonzero(launches) == want,
+                      f"{label}: launches {nonzero(launches)}, want {want}")
+            out[("15a", topology, n, pods)] = {
+                "ms": ms, "launches": launches, "pack_bytes": TRAFFIC.pack_bytes,
+                "dense_bytes": TRAFFIC.dense_bytes, "packs": len(TRAFFIC.packs)}
+        del grads
+
+        # -- 15b: 6b's VGG11 ring run, one node a rank
+        out.update(phase15b_rank(torch, dist, rank, world, spec, dev, sync))
+        dist.barrier()
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase15b_rank(torch, dist, rank, world, spec, dev, sync):
+    """15b on one rank: ``make_ssgd_step(mesh=)`` on VGG11-CIFAR, node
+    ``rank`` of 4, its batches through ``ShardedLoader(mesh=)``; after each
+    step its parameters and optimizer state against 6b's simulated step."""
+    import contextlib
+
+    from repro_torch import comm
+    from repro_torch.comm.p2p import TRAFFIC
+    from repro_torch.configs import paper_models
+    from repro_torch.core.policy import DitherPolicy
+    from repro_torch.data import ShardedLoader
+    from repro_torch.data.synthetic import ClassifConfig, classification_batch
+    from repro_torch.distributed import SSGDConfig, make_ssgd_step
+    from repro_torch.distributed import ssgd as ssgd_mod
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import NodeTopology
+    from repro_torch.models.cnn import CNN
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+
+    mname, n, topology, steps = spec["ssgd_run"]
+    node_batch = spec["node_batch"]
+    group = None if n == world else dist.new_group(list(range(n)))
+    if rank >= n:
+        return {}
+    mesh = NodeTopology.flat(n).mesh(group)
+    mcfg = paper_models.MODELS[mname]()
+    net = CNN(mcfg, seed=SEED, device=dev)
+    dcfg = SSGDConfig(n_nodes=n, s_schedule="sqrt", s_base=2.0)
+    cpol = comm.CommPolicy(default="nsd", s=dcfg.s_for_n(), topology=topology)
+    opt_cfg = OptConfig(name="sgd", lr=0.05, momentum=0.9, weight_decay=5e-4,
+                        grad_clip=None)
+    step, _ = make_ssgd_step(net, opt_cfg, dcfg, DitherPolicy(variant="kernel"),
+                             cpol, device=dev, mesh=mesh)
+    data = ClassifConfig(n_classes=mcfg.n_classes, img_size=mcfg.img_size,
+                         channels=mcfg.in_channels, noise=0.5, seed=SEED)
+    state = init_opt_state(dict(net.named_parameters()), opt_cfg)
+    n_comp = sum(cpol.mode_for(k, p.numel()) != "dense"
+                 for k, p in net.named_parameters())
+    packs, unpacks = mesh_rank_launches(topology, n, 1, rank)
+    per_node = SSGD_PER_NODE[mname]
+    want = {"nsd_quant": per_node["nsd_quant"] + n_comp * packs,
+            "bsp_matmul_int8": per_node["bsp_matmul_int8"],
+            "levels_compact": n_comp * packs, "levels_expand": n_comp * unpacks}
+    cuda = dev.type == "cuda"
+    spans = []
+    real_span = ssgd_mod.annotate
+
+    @contextlib.contextmanager
+    def timed_span(name):
+        if not cuda:
+            with real_span(name):
+                yield
+            return
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with real_span(name):
+            a.record()
+            yield
+            b.record()
+        spans.append((name.split("/")[-1], a, b))
+
+    loader = ShardedLoader(lambda i: classification_batch(
+        data, i, node_batch * n, device="cpu"), mesh=mesh, device=dev)
+    rows = []
+    ssgd_mod.annotate = timed_span
+    try:
+        for i in range(steps):
+            _, batch = next(loader)
+            sync()
+            spans.clear()
+            TRAFFIC.reset()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            m, _ = step(state, batch, SEED)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            got = dict(build.LAUNCHES)
+            label = f"15b {mname} {topology} N={n} rank {rank} step {i}"
+            if cuda:
+                check(nonzero(got) == want,
+                      f"{label}: launches {nonzero(got)}, want {want}")
+            sim = spec["ssgd"][i]
+            for k, p in net.named_parameters():
+                p = p.detach().cpu()
+                check(torch.equal(p, sim["params"][k]),
+                      f"{label}: parameter {k} differs from 6b's simulated step "
+                      f"(max |diff| {float((p - sim['params'][k]).abs().max())})")
+            mine = host_state(torch, net, state)["state"]
+            for k, v in sim["state"].items():
+                same_v = (torch.equal(mine[k], v) if isinstance(v, torch.Tensor)
+                          else mine[k] == v)
+                check(same_v, f"{label}: optimizer state {k} differs")
+            rows.append({"ms": wall, "launches": got,
+                         "spans": {nm: a.elapsed_time(b) for nm, a, b in spans},
+                         "pack_bytes": TRAFFIC.pack_bytes,
+                         "dense_bytes": TRAFFIC.dense_bytes,
+                         "loss": float(m["loss"]),
+                         "comm_wire_bytes": float(m["comm_wire_bytes"])})
+    finally:
+        ssgd_mod.annotate = real_span
+        loader.close()
+    return {("15b",): rows}
+
+
+def phase15(torch, card, dev):
+    """Phase 15: data-parallel over processes. 15a and 15b spawn
+    ``MESH_WORLD`` gloo ranks on ``dev`` (the ranks share the card); 15c
+    runs the launcher with ``--distributed`` at world size 1 on NCCL.
+    Returns the launches of each path by kernel (summed over the ranks),
+    for the kernels line."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import comm
+    from repro_torch.launch import train as lm_train
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    # 15a's inputs and the one-process simulation of each reduce
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    grads = {name: torch.randn((MESH_WORLD,) + shape, device=dev, generator=gen) * 1e-2
+             for name, shape in REDUCE_LEAVES.items()}
+    sims = []
+    for topology, n, pods in MESH_REDUCES:
+        pol = comm.CommPolicy(s=2.0, topology=topology, pods=pods,
+                              overrides=REDUCE_OVERRIDES)
+        g = {k: v[:n].contiguous() for k, v in grads.items()}
+        means, tele, _ = comm.reducer(pol, n_nodes=n).reduce(g, SEED, 1)
+        sims.append({"means": {k: v.cpu() for k, v in means.items()},
+                     "tele": {f: float(getattr(tele, f)) for f in REDUCE_TELEMETRY},
+                     "hops": (tele.n_hops, tele.packs_per_segment)})
+    check(len(SIM_SSGD_STEPS) == MESH_SSGD[3],
+          f"15b: phase 6b left {len(SIM_SSGD_STEPS)} simulated steps")
+    spec = os.path.join(scratch, "spec.pt")
+    torch.save({"device": str(dev), "grads": {k: v.cpu() for k, v in grads.items()},
+                "reduces": MESH_REDUCES, "sims": sims, "ssgd_run": MESH_SSGD,
+                "node_batch": SSGD_NODE_BATCH, "ssgd": SIM_SSGD_STEPS}, spec)
+    del grads
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(phase15_rank, args=(MESH_WORLD, os.path.join(scratch, "store"),
+                                     spec, scratch), nprocs=MESH_WORLD, join=True)
+    except Exception as e:  # a rank's failure fails the phase
+        errs = {r: open(os.path.join(scratch, f"rank{r}.err")).read()
+                for r in range(MESH_WORLD)
+                if os.path.exists(os.path.join(scratch, f"rank{r}.err"))}
+        # the rank that failed first, not those its exit disconnected
+        first = [t for t in errs.values() if "Connection closed by peer" not in t]
+        raise SmokeFailure(f"phase 15: a rank failed: "
+                           f"{(first or list(errs.values()) or [str(e)])[0]}") from e
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(scratch, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_WORLD)]
+    path_launches = {}
+    for (topology, n, pods), sim in zip(MESH_REDUCES, sims):
+        res = [ranks[r][("15a", topology, n, pods)] for r in range(n)]
+        dense = sum(float(comm.reducer(comm.CommPolicy(
+                        s=2.0, topology=topology, pods=pods,
+                        overrides=REDUCE_OVERRIDES), n_nodes=n)._topo_dense_bytes(
+                        math.prod(shape)))
+                    for k, shape in REDUCE_LEAVES.items()
+                    if comm.CommPolicy(overrides=REDUCE_OVERRIDES).mode_for(
+                        k, math.prod(shape)) == "dense")
+        received = sum(r["pack_bytes"] for r in res)
+        check(received == sim["tele"]["wire_bytes"] - dense,
+              f"15a {topology} N={n}: the ranks received {received} B of packs, "
+              f"the telemetry counts {sim['tele']['wire_bytes'] - dense}")
+        total = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+        path_launches[f"dp-process reduce {topology} N={n} pods={pods} "
+                      f"(phase 6a leaves, all ranks)"] = total
+        log(f"phase 15a: {topology} N={n} pods={pods} over {n} gloo ranks on "
+            f"{dev}: every rank's means, wire, dense, ICI, DCN and peak-DCN "
+            f"bytes, bound, hops and packs_per_segment equal the one-process "
+            f"simulation's bit for bit (wire_bytes {sim['tele']['wire_bytes']}, "
+            f"error_bound {sim['tele']['error_bound']}); packs received "
+            f"{received} B = wire_bytes less the dense leaves' {dense} B "
+            f"(dense leaves gathered: {sum(r['dense_bytes'] for r in res)} B); "
+            f"per rank ms {[round(r['ms'], 3) for r in res]}, launches "
+            f"{[nonzero(r['launches']) for r in res]} ({card})")
+    mname, n, topology, steps = MESH_SSGD
+    rows = [ranks[r][("15b",)] for r in range(n)]
+    total = {k: sum(rows[r][i]["launches"][k] for r in range(n) for i in range(steps))
+             for k in rows[0][0]["launches"]}
+    path_launches[f"dp-process ssgd {mname} {topology} N={n} kernel "
+                  f"(all ranks)"] = total
+    for i in range(steps):
+        log(f"phase 15b: {mname} {topology} N={n} kernel step {i}: every rank's "
+            f"parameters and momenta equal 6b's simulated step bit for bit; loss "
+            f"{rows[0][i]['loss']:.5f}; per rank host ms "
+            f"{[round(rows[r][i]['ms'], 3) for r in range(n)]}, spans (CUDA events) "
+            f"{[{k: round(v, 3) for k, v in rows[r][i]['spans'].items()} for r in range(n)]}, "
+            f"packs received {[rows[r][i]['pack_bytes'] for r in range(n)]} B "
+            f"(sum {sum(rows[r][i]['pack_bytes'] for r in range(n))}, "
+            f"comm_wire_bytes {rows[0][i]['comm_wire_bytes']}), dense "
+            f"{[rows[r][i]['dense_bytes'] for r in range(n)]} B; launches per rank "
+            f"{[nonzero(rows[r][i]['launches']) for r in range(n)]} ({card})")
+    log(f"phase 15a/b: {MESH_WORLD} ranks spawned, run and joined in "
+        f"{spawn_s:.1f} s ({card})")
+
+    # -- 15c: the launcher's --distributed at world size 1 on NCCL
+    t0 = time.perf_counter()
+    plain = lm_train.main(MESH_LM_ARGS)
+    plain_s = time.perf_counter() - t0
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               PYTHONPATH=os.pathsep.join(
+                   [str(Path(__file__).resolve().parent / "src"),
+                    str(Path(__file__).resolve().parent)]))
+    out_json = os.path.join(scratch, "dist.json")
+    # the launcher's main, as ``python -m repro_torch.launch.train`` runs
+    # it, with the losses written out unrounded
+    code = ("import json, sys; import chip_smoke; "
+            "from repro_torch.launch import train; "
+            "t = train.main(sys.argv[2:]); a = sys.argv; "
+            "m = chip_smoke.nccl_mesh_check("
+            "a[a.index('--device') + 1] if '--device' in a else None); "
+            "json.dump([[h['loss'] for h in t.history], m], "
+            "open(sys.argv[1], 'w'))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, out_json, *MESH_LM_ARGS,
+                           "--distributed"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    dist_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"15c: --distributed failed: {proc.stderr[-2000:]}")
+    got, nccl_mesh = json.load(open(out_json))
+    want = [h["loss"] for h in plain.history]
+    check(got == want, f"15c: losses {got} vs {want}")
+    joined = ("distributed: nccl rank 0 of 1 on cuda:0" if dev.type == "cuda"
+              else "distributed: gloo rank 0 of 1 on cpu")
+    check(joined in proc.stderr, f"15c: no {joined!r} in its log")
+    log(f"phase 15c: python -m repro_torch.launch.train {' '.join(MESH_LM_ARGS)} "
+        f"--distributed (RANK=0 WORLD_SIZE=1 LOCAL_RANK=0): '{joined}', "
+        f"losses {got} equal to the run without the flag; "
+        f"{dist_s:.1f} s in its own process, {plain_s:.1f} s in this one ({card})")
+    log(f"phase 15c: a NodeMesh on {nccl_mesh['backend']} at world size 1 "
+        f"(on NCCL it runs one barrier first) reduced phase 6a's leaves under "
+        f"{nccl_mesh['topologies']} equal to the one-process reduce of the one "
+        f"node bit for bit (means and wire_bytes); NCCL meshes of more than one "
+        f"rank cannot run on this one-card machine ({card})")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return path_launches
+
+
+def nccl_mesh_check(device=None):
+    """15c's second half, in the launcher's process after its run: one
+    ``NodeMesh`` over the process group of torchrun's environment (NCCL on
+    the card, world size 1; gloo when ``device`` is the CPU), phase 6a's
+    leaves reduced over it under ``ps`` and ``ring``, each held bit for bit
+    against the one-process reduce of the same one node. Returns the
+    backend and the topologies."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import comm
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import NodeTopology
+
+    dev = lm_train.init_distributed(device)
+    try:
+        mesh = NodeTopology.flat(1).mesh()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        grads = {k: torch.randn(shape, device=dev, generator=gen) * 1e-2
+                 for k, shape in REDUCE_LEAVES.items()}
+        done = []
+        for topology in ("ps", "ring"):
+            pol = comm.CommPolicy(s=2.0, topology=topology,
+                                  overrides=REDUCE_OVERRIDES)
+            got, tele, _ = comm.reducer(pol, mesh).reduce(grads, SEED, 1)
+            want, wtele, _ = comm.reducer(pol, n_nodes=1).reduce(
+                {k: v[None] for k, v in grads.items()}, SEED, 1)
+            for k in grads:
+                check(torch.equal(got[k], want[k]),
+                      f"15c: {topology} over the NCCL mesh: {k} differs")
+            check(float(tele.wire_bytes) == float(wtele.wire_bytes),
+                  f"15c: {topology} over the NCCL mesh: wire_bytes "
+                  f"{float(tele.wire_bytes)} vs {float(wtele.wire_bytes)}")
+            done.append(topology)
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "topologies": done}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     import torch
 
@@ -4071,7 +4538,13 @@ def main() -> int:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in audio_launches.items()})
 
-    # -- phases 15 and 16 --------------------------------------------------
+    # -- phase 15: data-parallel over processes --------------------------
+    mesh_launches = phase15(torch, card, dev)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in mesh_launches.items()})
+
+    # -- phases 16 and 17 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,14 +92,17 @@ class OverlapReducer(Reducer):
         self.bucket_target = int(bucket_bytes)
         self.policy = base.policy
         self.n_nodes = base.n_nodes
+        self.mesh = base.mesh
         self.topology = base.topology
 
     def init_state(self, params_or_grads):
         return self.base.init_state(params_or_grads)
 
     def plan_for(self, grads: Dict[str, torch.Tensor]) -> BucketPlan:
-        """The schedule this gradient dict reduces under (bytes a node)."""
-        named = [(name, g.numel() * g.element_size() // max(self.n_nodes, 1))
+        """The schedule this gradient dict reduces under (bytes a node: a
+        mesh reducer's leaves are already one node's)."""
+        per = 1 if self.mesh is not None else max(self.n_nodes, 1)
+        named = [(name, g.numel() * g.element_size() // per)
                  for name, g in sorted(grads.items())]
         return plan_buckets(named, self.bucket_target)
 

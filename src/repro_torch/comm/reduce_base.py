@@ -1,9 +1,9 @@
 """Shared machinery of the compressed reduces: segmenting, hop keys and the
 wire and error accounting.
 
-Counterpart of ``repro.comm.reduce_base`` for the simulated reduces (the
-flat ring, the hierarchy and the butterfly; the shard_map paths wait for
-ROADMAP.md section 1, item 7.2):
+Counterpart of ``repro.comm.reduce_base``, for the reduces simulated in
+one process and for their per-rank programs over a process mesh (the flat
+ring, the hierarchy and the butterfly):
 
   * segmenting      a flat gradient is zero-padded and split into
                     chunk-aligned segments, one per ring position;
@@ -14,7 +14,14 @@ ROADMAP.md section 1, item 7.2):
                     the pointwise error bound is the running sum of the
                     Deltas of every pack whose quantization error lands in a
                     segment's final value (paper eqs. 5/6 and
-                    |Q(x) - x| <= Delta pointwise).
+                    |Q(x) - x| <= Delta pointwise);
+  ledger            the order in which a reduce adds up its packs' bytes
+                    and Deltas, written once per topology: the simulation
+                    replays it on its packs, each rank of a process reduce
+                    on every rank's (bytes, Delta) records, so the two
+                    count the same f32 terms in the same order;
+  rank shares       which segment a rank sends and receives at each step
+                    of a ring.
 
 Keys are the int stream keys of ``repro_torch.core.policy`` (a splitmix64
 ``fold_in`` chain standing in for the reference's ``jax.random.fold_in``
@@ -23,7 +30,7 @@ in the reference's order; nothing here syncs with the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -97,16 +104,89 @@ class PackCounter:
         self.bound = torch.zeros((n_segments,), dtype=torch.float32,
                                  device=device)
 
-    def count(self, packed, seg: Optional[int] = None, link: str = "ici",
+    def count(self, nbytes: torch.Tensor, delta: torch.Tensor,
+              seg: Optional[int] = None, link: str = "ici",
               hops: int = 1) -> None:
-        """Record a pack crossing ``hops`` links of class ``link``; with
-        ``seg``, charge its Delta (``deltas[0]``) to that segment's error
-        bound (None for a pack forwarded verbatim, charged when made)."""
-        self.wire[link] = (self.wire[link]
-                           + packed.wire_bytes().to(torch.float32) * hops)
+        """Record a pack of ``nbytes`` (0-d f32) crossing ``hops`` links of
+        class ``link``; with ``seg``, charge its ``delta`` to that
+        segment's error bound (None for a pack forwarded verbatim, charged
+        when made)."""
+        self.wire[link] = self.wire[link] + nbytes * hops
         if seg is not None:
-            self.bound[seg] += packed.deltas[0]
+            self.bound[seg] += delta
 
     @property
     def wire_total(self) -> torch.Tensor:
         return self.wire["ici"] + self.wire["dcn"]
+
+
+Pid = Tuple[int, ...]  # a pack's id: the (salt, *indices) of its noise
+
+
+def ring_shares(me: int, n: int, step: int) -> Tuple[int, int]:
+    """(segment sent, segment received) by ring position ``me`` of ``n`` at
+    reduce-scatter step ``step``: it packs its partial sum of segment
+    (me - step) % n for its right neighbour and adds its left neighbour's
+    pack into segment (me - 1 - step) % n. After n - 1 steps it owns the
+    finished segment (me + 1) % n."""
+    return (me - step) % n, (me - 1 - step) % n
+
+
+class Ledger:
+    """A reduce's accounting as data: the packs' charges (bytes over a link
+    class, times a hop count, and the Delta into a segment's bound) and
+    their DCN line traffic (bytes through two pods' lines), in the order
+    the simulation counts them.
+
+    :meth:`replay` adds them up from a table of each pack's (bytes,
+    Delta): the simulation's own packs on the device (no host sync), or
+    the host records that a process reduce gathers from every rank. The
+    sums are f32 adds and products on either device, so the two give the
+    same bits; only the final division by N is left to the caller, on the
+    result's device (CUDA divides by a Python number as a product).
+    """
+
+    def __init__(self):
+        self.charges: List[Tuple[Pid, Optional[int], str, int]] = []
+        self.lines: List[Tuple[Pid, int, int]] = []
+
+    def charge(self, pid: Pid, seg: Optional[int] = None, link: str = "ici",
+               hops: int = 1) -> None:
+        self.charges.append((pid, seg, link, hops))
+
+    def line(self, pid: Pid, a: int, b: int) -> None:
+        """The pack crosses between pods ``a`` and ``b``: its bytes go
+        through both pods' DCN lines (sent and received)."""
+        self.lines.append((pid, a, b))
+
+    def replay(self, table: Dict[Pid, Tuple[torch.Tensor, torch.Tensor]],
+               n_segments: int, pods: int, device
+               ) -> Tuple[PackCounter, List[torch.Tensor]]:
+        """(counter, per-pod DCN line bytes) from ``table``: pack id ->
+        (0-d f32 bytes, 0-d f32 Delta) on ``device``."""
+        ctr = PackCounter(n_segments, device)
+        for pid, seg, link, hops in self.charges:
+            ctr.count(*table[pid], seg=seg, link=link, hops=hops)
+        traffic = [torch.zeros((), dtype=torch.float32, device=device)] * pods
+        for pid, a, b in self.lines:
+            nbytes = table[pid][0]
+            traffic[a] = traffic[a] + nbytes
+            traffic[b] = traffic[b] + nbytes
+        return ctr, traffic
+
+
+def pack_table(packs) -> Dict[Pid, Tuple[torch.Tensor, torch.Tensor]]:
+    """A simulation's table for :meth:`Ledger.replay`: pack id -> (its
+    measured wire bytes as f32, its Delta), on the packs' device."""
+    return {pid: (p.wire_bytes().to(torch.float32), p.deltas[0])
+            for pid, p in packs.items()}
+
+
+def record_table(records: Dict[Pid, Tuple[int, float]]
+                 ) -> Dict[Pid, Tuple[torch.Tensor, torch.Tensor]]:
+    """A process reduce's table for :meth:`Ledger.replay` from the gathered
+    host records (``repro_torch.comm.p2p.Exchange.records``), on the CPU:
+    the int32 bytes cast to f32 as the simulation casts them."""
+    return {pid: (torch.tensor(b, dtype=torch.int32).to(torch.float32),
+                  torch.tensor(d, dtype=torch.float32))
+            for pid, (b, d) in records.items()}

@@ -3,9 +3,14 @@ iterator of (step, device batch).
 
 Counterpart of ``repro.data.pipeline``. A background thread keeps
 ``prefetch`` batches ready, so step N + 1's batch is built and copied while
-step N computes. The reference's host slice is this process's share of the
-global batch; one process drives the one card, so the slice is the whole
-batch (the mesh argument comes with ROADMAP.md section 1, item 7.2).
+step N computes. Without a mesh one process drives the one card, and its
+slice of the global batch is the whole batch. With a
+:class:`repro_torch.launch.mesh.NodeMesh` one process is one data-parallel
+node, and rank r keeps rows ``[r * per, (r + 1) * per)`` of each leaf, per
+= global batch / ranks (the reference's host slice, process r of the
+process count); only those rows are copied to its device. ``batch_axes``,
+the reference's mesh axes that the batch splits over, may be left out; if
+given, it must name every axis of the node mesh, since a rank is one node.
 
 On CUDA each host batch is pinned and copied with ``non_blocking=True`` on
 a side stream, and an event marks the copy's end. :meth:`__next__` makes
@@ -36,10 +41,21 @@ class ShardedLoader:
     """Wraps a (step -> host batch) function into a prefetched iterator of
     ``(step, batch)`` on ``device`` (CUDA unless named)."""
 
-    def __init__(self, batch_fn: Callable[[int], Batch], prefetch: int = 2,
-                 start_step: int = 0,
+    def __init__(self, batch_fn: Callable[[int], Batch], mesh=None,
+                 batch_axes: Optional[Tuple[str, ...]] = None,
+                 prefetch: int = 2, start_step: int = 0,
                  device: Optional[torch.device] = None):
         self.batch_fn = batch_fn
+        # the reference shards the global array over ``batch_axes`` of its
+        # device mesh; a process holds one node, so the batch splits over
+        # every axis of the node mesh, and naming others is an error
+        if batch_axes is not None and (
+                mesh is None or set(batch_axes) != set(mesh.shape)):
+            have = "no mesh" if mesh is None else f"mesh axes {tuple(mesh.shape)}"
+            raise ValueError(
+                f"batch_axes {tuple(batch_axes)} with {have}: a rank holds "
+                "one node, so its rows split over every axis of its mesh")
+        self.mesh = mesh
         self.prefetch = prefetch
         self.device = resolve_device(device)
         self._step = start_step
@@ -52,8 +68,20 @@ class ShardedLoader:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _host_slice(self, global_batch: int) -> slice:
+        """This rank's rows of a global batch."""
+        n = self.mesh.size
+        if global_batch % n:
+            raise ValueError(f"batch {global_batch} does not split over "
+                             f"{n} ranks")
+        per = global_batch // n
+        return slice(self.mesh.index * per, (self.mesh.index + 1) * per)
+
     def _to_device(self, batch: Batch
                    ) -> Tuple[Batch, Optional[torch.cuda.Event]]:
+        if self.mesh is not None:
+            rows = self._host_slice(next(iter(batch.values())).shape[0])
+            batch = {k: v[rows] for k, v in batch.items()}
         if not self._cuda:
             return {k: v.to(self.device) for k, v in batch.items()}, None
         with torch.cuda.stream(self._stream):

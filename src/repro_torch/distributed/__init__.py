@@ -1,5 +1,6 @@
-"""repro_torch.distributed: data-parallel SSGD over simulated nodes
-(counterpart of ``repro.distributed``)."""
+"""repro_torch.distributed: data-parallel SSGD over simulated nodes, or one
+node a process over a ``repro_torch.launch.mesh.NodeMesh`` (counterpart of
+``repro.distributed``)."""
 from repro_torch.distributed.ssgd import (SSGDConfig, SSGDStep,
                                           make_ssgd_step, shard_batch)
 

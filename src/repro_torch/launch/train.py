@@ -38,13 +38,20 @@ step 2 on batch 0, not on batch 2 (a step-indexed loader, such as
 resumes on the step's own batch). Runs on CUDA unless ``--device cpu``;
 logs the loss every ``max(steps // 10, 1)`` steps to stderr.
 
-Not ported yet (ROADMAP.md section 1): the flag ``--distributed`` (item
-7.2), and the ``comm:`` section and ``quant: wire=`` (item 7.5), which
-raise.
+``--distributed`` joins the process group that ``torchrun`` describes in
+the environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): NCCL on CUDA, each rank on ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``. As the reference's flag, it only initialises the runtime:
+the trainer reduces nothing across processes (data-parallel training over
+processes is ``repro_torch.distributed.make_ssgd_step(..., mesh=)``).
+
+Not ported yet (ROADMAP.md section 1): the ``comm:`` section and ``quant:
+wire=`` (item 7.5), which raise.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -125,12 +132,37 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     "loss) raise instead of warn")
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises when there is none)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join torchrun's process group (NCCL on CUDA, gloo "
+                    "with --device cpu) and run on cuda:LOCAL_RANK")
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace):
-    """The trainer and the batch iterator that ``main`` runs."""
-    device = resolve_device(args.device)
+def init_distributed(device: Optional[str]) -> torch.device:
+    """Join the process group that torchrun's environment describes; the
+    device this rank runs on."""
+    import torch.distributed as dist
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if cpu:
+        dev = torch.device("cpu")
+    else:
+        dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+                             if device is None else device)
+        if not torch.cuda.is_available():
+            raise RuntimeError("--distributed on CUDA needs a GPU; pass "
+                               "--device cpu for gloo")
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo" if cpu else "nccl", init_method="env://")
+    log.info("distributed: %s rank %d of %d on %s", dist.get_backend(),
+             dist.get_rank(), dist.get_world_size(), dev)
+    return dev
+
+
+def build(args: argparse.Namespace, device: Optional[torch.device] = None):
+    """The trainer and the batch iterator that ``main`` runs (on
+    ``device``, by default ``--device``'s)."""
+    device = device or resolve_device(args.device)
     model = (get_smoke_model if args.preset == "smoke" else get_model)(
         args.arch)
     spec = merge_legacy_flags(args.program, args.policy_program,
@@ -198,8 +230,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse, build and fit; returns the trainer (its ``history``, ``net``
     and ``opt_state``)."""
     args = parse_args(argv)
-    trainer, batches = build(args)
-    trainer.fit(batches)
+    device = init_distributed(args.device) if args.distributed else None
+    try:
+        trainer, batches = build(args, device)
+        trainer.fit(batches)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     h = trainer.history
     log.info("final loss: %.4f", h[-1]["loss"] if h else float("nan"))
     if args.run_dir:

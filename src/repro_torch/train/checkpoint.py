@@ -30,8 +30,10 @@ leaf from the npz (one leaf on the host at a time). ``inplace=True`` copies
 each tensor into the template's own tensor instead of a new one, so
 restoring a model's state needs no second copy of it on the device.
 
-The reference's ``restore(shardings=...)`` reshards onto a mesh; the port
-has no mesh yet (ROADMAP.md section 1, item 7.2) and refuses the argument.
+The reference's ``restore(shardings=...)`` reshards onto a mesh under its
+sharding rules; the port's node mesh (``repro_torch.launch.mesh``) carries
+no sharding rules yet (they come with ROADMAP.md section 1, item 9), so it
+refuses the argument.
 """
 from __future__ import annotations
 

@@ -189,8 +189,14 @@ def test_allreduce_dispatchers_run_the_simulation():
     m, t = comm.allreduce_butterfly(g, 5, comm.ButterflyConfig(pods=2))
     assert torch.equal(m, comm.butterfly_allreduce_nsd(
         g, 5, comm.ButterflyConfig(pods=2))[0])
-    with pytest.raises(NotImplementedError, match="7.2"):
-        comm.allreduce_butterfly(g, 5, mesh=object())
+    # with a mesh they run the process reduce (tests/test_torch_mesh.py),
+    # which needs the mesh's pod axis
+    class FlatMesh:
+        shape = {"nodes": 4}
+
+    with pytest.raises(ValueError, match="pods"):
+        comm.allreduce_butterfly(g[0], 5, comm.ButterflyConfig(pods=2),
+                                 mesh=FlatMesh())
 
 
 # ---------------------------------------------------------------------------
