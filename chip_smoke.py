@@ -141,8 +141,9 @@ Phases (any failure exits non-zero and prints no result):
          and the peak device memory above what was held before the step;
      6c. ``python -m repro_torch.train.distributed_nodes --check
          benchmarks/baselines/BENCH_distributed_nodes.json`` through its
-         ``main``: the ``fig5-6/N=1,2,4`` and ``topology/ring/N=8`` rows
-         within the reference's gates, the rest named as not ported;
+         ``main``: every row within the reference's gates, the overlap
+         row's bucketed reduce bit for bit with the blocking one among
+         them;
   7. gemma-2b at full width (2.51 B parameters, bf16, remat per block,
      AdamW; batch 8 x seq 128) through the LM launcher,
      ``repro_torch.launch.train.main``:
@@ -374,7 +375,26 @@ Phases (any failure exits non-zero and prints no result):
          15a's leaves reduced over it under ``ps`` and ``ring``, equal to
          the one-process reduce of the one node bit for bit;
      a rank's failure fails the phase;
-  16. print one JSON line naming the seven kernels (the NSD row carries its
+  16. the trainer's gradient wire on gemma-2b (``comm:`` and ``quant:
+     wire=``), the reference's leaves (the 18 blocks stacked, 11 leaves)
+     through the flat reducer each step:
+     16a. 7a's run with ``comm: default=nsd;s=2.0;stats=1`` through the
+         launcher: each step's launches (7a's plus one NSD, one wire
+         compact and one wire expand a leaf), host ms and its split into
+         the backward, the wire (``step/comm``) and the update, the loss beside 7a's (step 0's equal), wire and
+         dense bytes and their ratio, the comm telemetry's rows against
+         the history's ``comm_wire_mb``, the peak device memory; then step
+         2's gradients reduced on the kernel and the plain versions'
+         routes, every pack's levels, bitmap, deltas and nnz and the
+         reduced gradients bit for bit;
+     16b. the same model, built once, 2 steps under ``quant:
+         wire=int4@g32``: no launch, the wire bytes the codec's measured
+         bytes;
+     16c. ``comm: default=topk_ef;topk_frac=0.01`` at the smoke preset
+         with ``--ckpt-dir``: a trainer resumed from step 2 ends with the
+         straight run's parameters, moments and error-feedback residuals
+         bit for bit;
+  17. print one JSON line naming the seven kernels (the NSD row carries its
      residual-encode figures under ``nsd_residual_encode``, the draw-only
      kernel of its source under ``philox_uniform``, the expand row the
      paged expand of phase 10b under ``serve_pages``, the pack row its
@@ -383,8 +403,8 @@ Phases (any failure exits non-zero and prints no result):
      phase 5's log gives the NSD row's bound by the padded definition too,
      9 bytes a padded element; every row's ``launches_by_path`` gives its
      launches in the runs of phases 4e, 4f, 6b, 6c, 7, 8, 9, 10, 11, 12,
-     13, 14 and 15, phase 15's summed over the ranks);
-  17. print the JSON result line last.
+     13, 14, 15 and 16, phase 15's summed over the ranks);
+  18. print the JSON result line last.
 
 It imports nothing of JAX or of the reference package, and needs the
 checkout's ``src/`` beside it.
@@ -496,6 +516,19 @@ MESH_LM_ARGS = ["--arch", "gemma-2b", "--preset", "smoke", "--steps", "2",
 # 6b's simulated VGG11 ring steps (parameters and optimizer state after
 # each, on the host), the reference of 15b
 SIM_SSGD_STEPS = []
+# 7a's steps (step, host ms, loss, launches), beside which phase 16a prints
+LM_7A_STEPS = []
+
+# phase 16: the trainer's gradient wire. 16a: 7a's run with every gradient
+# leaf of >= 256 elements (the reference's leaves, the blocks stacked: 11
+# of gemma-2b's) through the NSD wire each step, one NSD, one wire compact
+# and one wire expand a leaf; 16b: int4 on the wire (a codec spec, its
+# measured bytes); 16c: topk_ef at the smoke preset, a 2 + 2 resume
+LM_COMM = "comm: default=nsd;s=2.0;stats=1"
+LM_WIRE_LEAVES = 11
+LM_WIRE_CODEC = "int4@g32"
+LM_WIRE_STEPS = 2
+LM_TOPK_COMM = "comm: default=topk_ef;topk_frac=0.01"
 
 # phase 7: gemma-2b at full width through the LM launcher (bf16, remat per
 # block, AdamW), 8 sequences of 128 tokens a step
@@ -767,9 +800,9 @@ REDUCE_TELEMETRY = ("wire_bytes", "dense_bytes", "error_bound", "wire_ici_bytes"
                     "wire_dcn_bytes", "peak_dcn_bytes")
 
 
-def reduce_both_routes(torch, plain_kernels, red, g, label):
-    """``red.reduce(g)`` on the kernel route (no host sync allowed) and on
-    the plain route: the mean, every pack's levels, bitmap, deltas and nnz,
+def reduce_both_routes(torch, plain_kernels, red, g, label, key=SEED, step=1):
+    """``red.reduce(g, key, step)`` on the kernel route (no host sync
+    allowed) and on the plain route: the mean, every pack's levels, bitmap, deltas and nnz,
     and the telemetry (``REDUCE_TELEMETRY``) bit for bit. Returns the kernel
     route's telemetry, packs and launches."""
     from repro_torch.kernels import build
@@ -790,7 +823,7 @@ def reduce_both_routes(torch, plain_kernels, red, g, label):
         wire.pack_nsd = recording_pack
         try:
             with ctx:
-                out, tele, _ = red.reduce(g, SEED, 1)
+                out, tele, _ = red.reduce(g, key, step)
         finally:
             wire.pack_nsd = real_pack
         torch.cuda.synchronize()
@@ -1087,6 +1120,7 @@ def phase7(torch, card, dev, plain_kernels, swapped, kernel, worst_rel):
     trainer, kernel_total, peak_7a = run(argv, "7a")
     check(len(steps_seen) == LM_STEPS, f"7a: {len(steps_seen)} steps")
     seen_7a = list(steps_seen)
+    LM_7A_STEPS[:] = seen_7a
     for step, _, _, launched in steps_seen:
         want = LM_KERNEL_STEP if step >= LM_FIRST_KERNEL_STEP else {}
         check(launched == want, f"7a step {step}: launches {launched}, want {want}")
@@ -3282,6 +3316,254 @@ def phase15(torch, card, dev):
     return path_launches
 
 
+def phase16(torch, card, dev, plain_kernels):
+    """Phase 16: the trainer's gradient wire on gemma-2b at full width
+    through the launcher. 16a: 7a's program with ``comm:
+    default=nsd;s=2.0;stats=1``: each step's launches (7a's plus an NSD, a
+    wire compact and a wire expand a leaf), host ms, loss beside 7a's,
+    wire and dense bytes (the comm telemetry's row a step, totals equal
+    to the history's), the peak device memory; then step 2's gradients
+    reduced on the kernel route and on the plain versions' route, every
+    pack's levels, bitmap, deltas and nnz and the reduced gradients bit for
+    bit. 16b: the same model (built once) for 2 steps under ``quant:
+    wire=int4@g32``: no launch, the wire bytes the codec's measured bytes.
+    16c: ``comm: default=topk_ef;topk_frac=0.01`` at the smoke preset with
+    ``--ckpt-dir``: a trainer resumed from step 2 ends with the straight
+    run's parameters, moments and error-feedback residuals bit for bit.
+    Returns the launches of each run by kernel, for the kernels line."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import comm, quant
+    from repro_torch.data import ShardedLoader
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train import list_steps
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.utils.pytree import flatten_with_names
+
+    t_phase = time.perf_counter()
+    seen, parts = [], {}
+    real_step, real_grads = trainer_mod.Trainer.train_step, trainer_mod.Trainer.grads
+    real_comm, real_update = trainer_mod.Trainer.comm, trainer_mod.apply_updates
+
+    def timed_step(self, batch, step):
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = real_step(self, batch, step)
+        torch.cuda.synchronize()
+        seen.append((step, (time.perf_counter() - t0) * 1e3, float(out["loss"]),
+                     float(out["comm_wire_bytes"]), float(out["comm_dense_bytes"]),
+                     {k: v - before[k] for k, v in build.LAUNCHES.items()
+                      if v != before[k]}))
+        return out
+
+    def timed(fn, part):
+        """``fn`` with its host time between device syncs appended to
+        ``parts[part]``: the step's backward, wire and update."""
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts.setdefault(part, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def run(train, label):
+        """``train()`` with every step timed: the launches, the peak device
+        memory above what was held before, and that."""
+        seen.clear()
+        parts.clear()
+        ops.KERNEL_FALLBACKS.clear()
+        build.reset_launches()
+        comm.telemetry.reset()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer_mod.Trainer.train_step = timed_step
+        trainer_mod.Trainer.grads = timed(real_grads, "grads")
+        trainer_mod.Trainer.comm = timed(real_comm, "comm")
+        trainer_mod.apply_updates = timed(real_update, "update")
+        try:
+            trainer = train()
+        finally:
+            trainer_mod.Trainer.train_step = real_step
+            trainer_mod.Trainer.grads = real_grads
+            trainer_mod.Trainer.comm = real_comm
+            trainer_mod.apply_updates = real_update
+        torch.cuda.synchronize()
+        check(not ops.KERNEL_FALLBACKS, f"{label}: fallbacks {ops.KERNEL_FALLBACKS}")
+        return (trainer, dict(build.LAUNCHES),
+                torch.cuda.max_memory_allocated() - held, held)
+
+    # -- 16a: 7a's run with the NSD wire ----------------------------------
+    argv = LM_ARGS + ["--steps", str(LM_STEPS), "--program",
+                      f"{LM_PROGRAM} {LM_COMM}"]
+    log(f"phase 16a: python -m repro_torch.launch.train {' '.join(argv)}")
+    t0 = time.perf_counter()
+    trainer, total_a, peak, held = run(lambda: lm_train.main(argv), "16a")
+    seconds = time.perf_counter() - t0
+    leaves = trainer_mod.wire_leaves({n: p.detach().to("meta")
+                                      for n, p in trainer.params.items()})
+    packed = sorted(n for n, t in leaves.items()
+                    if t.numel() >= trainer.comm_policy.min_leaf_size)
+    check(len(packed) == LM_WIRE_LEAVES, f"16a: {len(packed)} leaves on the wire")
+    per_leaf = {"nsd_quant": LM_WIRE_LEAVES, "levels_compact": LM_WIRE_LEAVES,
+                "levels_expand": LM_WIRE_LEAVES}
+    dense = 4.0 * LM_PARAMS
+    check(len(seen) == len(LM_7A_STEPS) == LM_STEPS, f"16a: {len(seen)} steps")
+    check(all(len(parts.get(k, ())) == LM_STEPS for k in ("grads", "comm", "update")),
+          f"16a: timed parts {({k: len(v) for k, v in parts.items()})}")
+    for (step, ms, loss, wire, dense_b, launched), (_, ms7, loss7, _), gms, cms, ums in zip(
+            seen, LM_7A_STEPS, parts["grads"], parts["comm"], parts["update"]):
+        want = dict(per_leaf)
+        if step >= LM_FIRST_KERNEL_STEP:
+            want = {k: want.get(k, 0) + LM_KERNEL_STEP.get(k, 0)
+                    for k in set(want) | set(LM_KERNEL_STEP)}
+        check(launched == want, f"16a step {step}: launches {launched}, want {want}")
+        check(math.isfinite(loss), f"16a step {step}: loss {loss}")
+        check(math.isclose(dense_b, dense, rel_tol=1e-6) and 0 < wire < dense_b,
+              f"16a step {step}: wire {wire} B, dense {dense_b} B")
+        log(f"phase 16a step {step}: {ms:.3f} ms on the host clock (7a {ms7:.3f}; "
+            f"the backward {gms:.3f}, the wire {cms:.3f}, the update {ums:.3f} ms), loss {loss:.4f} (7a {loss7:.4f}), launches "
+            f"{launched}, wire "
+            f"{wire:.0f} B of dense {dense_b:.0f} B (ratio {wire / dense_b:.5f}; "
+            f"{comm.telemetry.wire_seconds(wire) * 1e3:.3f} ms on one NVLink at its "
+            f"450 GB/s spec rate)")
+    check(seen[0][2] == LM_7A_STEPS[0][2], "16a: step 0's loss differs from 7a's")
+    summ, tot = comm.telemetry.summary(), comm.telemetry.totals()
+    check(list(summ) == ["comm/"] and tot.n_records == LM_STEPS,
+          f"16a: comm telemetry {summ}")
+    wires = [w for _, _, _, w, _, _ in seen]
+    check(math.isclose(tot.wire_bytes, sum(wires), rel_tol=1e-6),
+          f"16a: telemetry wire {tot.wire_bytes} vs steps {sum(wires)}")
+    check([r["comm_wire_mb"] for r in trainer.history] == [w / 1e6 for w in wires],
+          "16a: the history's comm_wire_mb differs from the steps' wire bytes")
+    ms = [m for _, m, _, _, _, _ in seen]
+    log(f"phase 16a: {len(packed)} leaves on the wire {packed}; {seconds:.1f} s "
+        f"for {LM_STEPS} steps with the model's build; off steps {ms[1]:.3f} ms, "
+        f"kernel steps {min(ms[3:]):.3f}-{max(ms[3:]):.3f} ms; wire/dense "
+        f"{tot.ratio:.5f} over the run; peak device memory "
+        f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before "
+        f"(7a in phase 7's log); launches over the run {nonzero(total_a)} ({card})")
+
+    # step 2's gradients through the wire on both routes
+    net = trainer.net
+    trainer.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = TokenStreamConfig(vocab=trainer.model.cfg.vocab, seq_len=128, batch=8)
+    for p in net.parameters():
+        p.grad = None
+    trainer.grads(token_batch(tcfg, LM_FIRST_KERNEL_STEP, device=dev),
+                  LM_FIRST_KERNEL_STEP)
+    g = trainer_mod.wire_leaves({n: p.grad for n, p in trainer.params.items()})
+    for p in net.parameters():
+        p.grad = None
+    tele, packs, launched = reduce_both_routes(
+        torch, plain_kernels, trainer._reducer, g, "16a step 2",
+        key=trainer.comm_key, step=LM_FIRST_KERNEL_STEP)
+    check(launched == {**{k: 0 for k in build.LAUNCHES}, **per_leaf},
+          f"16a step 2: the reduce launched {nonzero(launched)}")
+    check(len(packs) == len(packed), f"16a step 2: {len(packs)} packs")
+    log(f"phase 16a: step {LM_FIRST_KERNEL_STEP}'s reduce bit for bit between the "
+        f"kernel and plain routes over {len(packs)} packs (levels, bitmap, "
+        f"deltas, nnz, the reduced gradients); non-zero k by leaf "
+        + ", ".join(f"{n} {int(p.nnz.sum())} of {g[n].numel()}"
+                    for n, p in zip(packed, packs))
+        + f"; wire {float(tele.wire_bytes):.0f} B ({card})")
+    del g, packs, tele
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16b: int4 on the wire, the same model ----------------------------
+    argv = LM_ARGS + ["--steps", str(LM_WIRE_STEPS), "--program",
+                      f"{LM_PROGRAM} quant: wire={LM_WIRE_CODEC}"]
+    log(f"phase 16b: python -m repro_torch.launch.train {' '.join(argv)} "
+        f"(on 16a's model)")
+    trainer, batches = lm_train.build(lm_train.parse_args(argv), dev)
+    check(trainer.comm_policy.default == LM_WIRE_CODEC,
+          f"16b: comm policy {trainer.comm_policy}")
+    _, total_b, peak_b, _ = run(lambda: trainer.fit(batches, params=net), "16b")
+    # the codec's measured bytes are its static capacity, added in f32 in
+    # the leaves' order
+    want = np.float32(0)
+    for name in sorted(leaves):
+        t = leaves[name]
+        dense_leaf = trainer.comm_policy.mode_for(name, t.numel()) == "dense"
+        want = np.float32(want + np.float32(
+            4 * t.numel() if dense_leaf else
+            quant.stored_nbytes(LM_WIRE_CODEC, t.shape, torch.float32)))
+    for (step, ms, loss, wire, dense_b, launched), cms in zip(seen, parts["comm"]):
+        check(not launched, f"16b step {step}: launches {launched}")
+        check(wire == float(want) and math.isfinite(loss),
+              f"16b step {step}: wire {wire} B, want {float(want)}; loss {loss}")
+        log(f"phase 16b step {step}: {ms:.3f} ms on the host clock (the wire "
+            f"{cms:.3f} ms), loss "
+            f"{loss:.4f}, wire {wire:.0f} B of dense {dense_b:.0f} B (ratio "
+            f"{wire / dense_b:.5f}), launches {launched}")
+    log(f"phase 16b: peak device memory {peak_b / 2**30:.2f} GiB ({card})")
+    del trainer, net, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16c: topk_ef at the smoke preset, a 2 + 2 resume ------------------
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_16c_")
+    d_run, d_resume = os.path.join(scratch, "run"), os.path.join(scratch, "resume")
+    argv = ["--arch", "gemma-2b", "--preset", "smoke", "--batch",
+            str(LM_RESUME_BATCH), "--seq", str(LM_RESUME_SEQ), "--program",
+            f"{LM_PROGRAM} {LM_TOPK_COMM}", "--device", str(dev),
+            "--ckpt-every", "2"]
+    build.reset_launches()
+    straight = lm_train.main(argv + ["--steps", "4", "--ckpt-dir", d_run])
+    total_c = dict(build.LAUNCHES)
+    check(list_steps(d_run) == [2, 4], f"16c: checkpoints {list_steps(d_run)}")
+    os.makedirs(d_resume)
+    shutil.copytree(os.path.join(d_run, "step_00000002"),
+                    os.path.join(d_resume, "step_00000002"))
+    resumed, _ = lm_train.build(lm_train.parse_args(
+        argv + ["--steps", "4", "--ckpt-dir", d_resume]))
+    tcfg = TokenStreamConfig(vocab=resumed.model.cfg.vocab, seq_len=LM_RESUME_SEQ,
+                             batch=LM_RESUME_BATCH)
+    loader = ShardedLoader(lambda s: token_batch(tcfg, s, device="cpu"),
+                           start_step=2, device=dev)
+    try:
+        resumed.fit(loader)
+    finally:
+        loader.close()
+    check(resumed.opt_state["step"] == straight.opt_state["step"] == 4,
+          "16c: the runs did not end at step 4")
+    a, b = ([(n, x) for n, x in flatten_with_names(
+        {"params": t.params, "opt": t.opt_state, "comm": t._comm_state})]
+        for t in (straight, resumed))
+    check([n for n, _ in a] == [n for n, _ in b], "16c: state names differ")
+    residuals = sorted({n.split("/.")[0][len("comm/"):] for n, _ in a
+                        if n.startswith("comm/")})
+    topk = sorted(n for n, t in trainer_mod.wire_leaves(
+        {n: p.detach() for n, p in resumed.params.items()}).items()
+        if t.numel() >= resumed.comm_policy.min_leaf_size)
+    check(residuals == topk, f"16c: residuals {residuals}, want {topk}")
+    for (name, x), (_, y) in zip(a, b):
+        ok = torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        check(ok, f"16c: {name} of the resumed run differs from the straight run's")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 16c: python -m repro_torch.launch.train {' '.join(argv)} --steps 4 "
+        f"--ckpt-dir DIR, and a Trainer resumed from step 2: step-4 parameters, "
+        f"moments and {len(residuals)} error-feedback residuals equal bit for "
+        f"bit over {len(a)} leaves; launches of the straight run "
+        f"{nonzero(total_c)} ({card})")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {f"gemma-2b comm nsd {LM_STEPS} steps ({LM_FIRST_KERNEL_STEP} off)": total_a,
+            f"gemma-2b quant: wire={LM_WIRE_CODEC} {LM_WIRE_STEPS} steps": total_b,
+            "gemma-2b smoke comm topk_ef 4 steps": total_c}
+
+
 def nccl_mesh_check(device=None):
     """15c's second half, in the launcher's process after its run: one
     ``NodeMesh`` over the process group of torchrun's environment (NCCL on
@@ -4544,7 +4826,13 @@ def main() -> int:
         row["launches_by_path"].update(
             {p: n[row["name"]] for p, n in mesh_launches.items()})
 
-    # -- phases 16 and 17 --------------------------------------------------
+    # -- phase 16: the trainer's gradient wire ------------------------------
+    wire_launches = phase16(torch, card, dev, plain_kernels)
+    for row in rows:
+        row["launches_by_path"].update(
+            {p: n[row["name"]] for p, n in wire_launches.items()})
+
+    # -- phases 17 and 18 --------------------------------------------------
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

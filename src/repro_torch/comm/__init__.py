@@ -12,17 +12,19 @@ ring.py         the compressed ring all-reduce (re-dithered partial sums)
 hierarchy.py    intra-pod ring + inter-pod binomial tree
 butterfly.py    intra-pod ring + inter-pod recursive halving/doubling
 overlap.py      reverse-layer-order buckets around any reducer
-compression.py  per-leaf CommPolicy (dense/int8/nsd/topk_ef), error
-                feedback, the reduce topologies
-reducer.py      the front door: ``reducer(policy, n_nodes=N)`` or
-                ``reducer(policy, mesh)`` with ``reduce(grads, key, step,
-                state)`` and typed telemetry
-telemetry.py    one bytes-on-wire row per reduce into the obs metrics store
+compression.py  per-leaf CommPolicy (dense/int8/nsd/topk_ef or a quant
+                codec spec), error feedback, the reduce topologies,
+                ``compress_tree``
+reducer.py      the front door: ``reducer(policy, n_nodes=N)``,
+                ``reducer(policy, mesh)`` or the trainer's flat
+                ``reducer(policy, stacked=False)``, with ``reduce(grads,
+                key, step, state)`` and typed telemetry; the ``comm:``
+                program section
+telemetry.py    one bytes-on-wire row per reduce into the obs metrics store,
+                its readers and its link price
 
-Not ported yet (``ROADMAP.md`` section 1, item 7): the flat reducer and
-``compress_tree``, codec specs as comm modes (7.5), the telemetry readers,
-and the deprecated ``wireformat`` / ``allreduce_compressed`` /
-``reduce_cfg`` shims.
+Not ported yet (``ROADMAP.md`` section 1, item 7): the deprecated
+``wireformat`` / ``allreduce_compressed`` / ``reduce_cfg`` shims.
 """
 from repro_torch.comm import telemetry
 from repro_torch.comm.compression import (
@@ -40,6 +42,7 @@ from repro_torch.comm.compression import (
     CommPolicy,
     ErrorFeedbackState,
     compress_leaf,
+    compress_tree,
     init_comm_state,
     topk_error_feedback,
 )
@@ -56,7 +59,9 @@ from repro_torch.comm.hierarchy import (HierConfig, HierTelemetry,
 from repro_torch.comm.overlap import BucketPlan, OverlapReducer, plan_buckets
 from repro_torch.comm.reduce_base import (PackCounter, ReduceTelemetry,
                                           hop_key, seg_len, segment)
-from repro_torch.comm.reducer import Reducer, ReducerTelemetry, reducer
+from repro_torch.comm.reducer import (Reducer, ReducerTelemetry,
+                                      format_comm_program,
+                                      parse_comm_program, reducer)
 from repro_torch.comm.ring import (RingConfig, dense_reduce_bytes,
                                    make_ring_allreduce, ring_allreduce_mesh,
                                    ring_allreduce_nsd)
@@ -64,7 +69,7 @@ from repro_torch.comm.ring import (RingConfig, dense_reduce_bytes,
 __all__ = [
     "DENSE", "MODE_DENSE", "MODE_INT8", "MODE_NSD", "MODE_TOPK_EF", "MODES",
     "TOPO_BUTTERFLY", "TOPO_HIER", "TOPO_PS", "TOPO_RING", "TOPOLOGIES",
-    "CommPolicy", "ErrorFeedbackState", "compress_leaf", "init_comm_state", "topk_error_feedback",
+    "CommPolicy", "ErrorFeedbackState", "compress_leaf", "compress_tree", "init_comm_state", "topk_error_feedback",
     "PackCounter", "ReduceTelemetry", "hop_key", "seg_len", "segment",
     "ButterflyConfig", "ButterflyTelemetry", "allreduce_butterfly",
     "butterfly_allreduce_mesh", "butterfly_allreduce_nsd", "butterfly_rounds",
@@ -72,7 +77,8 @@ __all__ = [
     "HierConfig", "HierTelemetry", "allreduce_hier", "hier_allreduce_mesh",
     "hier_allreduce_nsd", "make_hier_allreduce", "tree_rounds",
     "BucketPlan", "OverlapReducer", "plan_buckets",
-    "Reducer", "ReducerTelemetry", "reducer",
+    "Reducer", "ReducerTelemetry", "format_comm_program",
+    "parse_comm_program", "reducer",
     "RingConfig", "dense_reduce_bytes", "make_ring_allreduce",
     "ring_allreduce_mesh", "ring_allreduce_nsd",
     "telemetry",

@@ -10,10 +10,13 @@ gradient leaf, how that leaf crosses the wire in a data-parallel exchange:
                                                     ``repro_torch.quant.wire``)
     topk_ef  top-k sparsification + error feedback (8 bytes/kept elem)
 
-Small leaves (biases, norm scales) default to dense. The reference also
-takes any quant codec spec as a per-leaf mode and compresses whole trees
-outside a reducer (``compress_tree``); neither has a caller on the port's
-path yet (``ROADMAP.md`` section 1, item 7).
+Any registered quant codec spec (``repro_torch.quant``, e.g.
+``"int4@g32"``) is also a per-leaf mode: it rides the registry branch of
+``compress_leaf`` (encode, then decode) with the codec's own measured
+bytes. Small leaves (biases, norm scales) default to dense.
+``compress_tree`` routes a whole gradient dict through the wire leaf by
+leaf: the trainer's single-participant wire (``repro_torch.comm.reducer``'s
+flat reducer).
 
 Where the reference passes an RNG key, the port passes ``noise``: an int
 stream key (the NSD launch draws u from it) or a unit draw u of the leaf's
@@ -24,19 +27,32 @@ measured ones, so a reduce never syncs with the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.comm import telemetry as tele
 from repro_torch.quant import codecs as qc
 from repro_torch.quant import wire
-from repro_torch.quant.registry import dense_nbytes
+from repro_torch.quant.registry import dense_nbytes, parse_spec
 
 MODE_DENSE = "dense"
 MODE_INT8 = "int8"
 MODE_NSD = "nsd"
 MODE_TOPK_EF = "topk_ef"
 MODES = (MODE_DENSE, MODE_INT8, MODE_NSD, MODE_TOPK_EF)
+
+
+def _valid_comm_mode(mode: str) -> bool:
+    """One of :data:`MODES` or a registered quant codec spec."""
+    if mode in MODES:
+        return True
+    try:
+        parse_spec(mode)
+        return True
+    except ValueError:
+        return False
+
 
 # How the data-parallel reduce is organized (``repro_torch.comm.reducer``):
 # "ps" compresses every node's gradient and averages at a server, "ring" runs
@@ -87,6 +103,7 @@ class CommPolicy:
     min_leaf_size: int = 256  # leaves smaller than this stay dense
     overrides: tuple = ()  # ((name_substring, mode), ...), first match wins
     collect_stats: bool = False  # one comm telemetry row per reduce
+    stats_tag: str = "comm/"  # the rows' tag
     topology: str = TOPO_PS
     pods: int = 1  # node grouping for TOPO_HIER/BUTTERFLY (N = pods*per_pod)
     # > 0 reduces the gradient leaves in ~bucket_bytes buckets in reverse
@@ -99,8 +116,10 @@ class CommPolicy:
 
     def __post_init__(self):
         for m in (self.default,) + tuple(m for _, m in self.overrides):
-            if m not in MODES:
-                raise ValueError(f"unknown comm mode {m!r}; one of {MODES}")
+            if not _valid_comm_mode(m):
+                raise ValueError(
+                    f"unknown comm mode {m!r}; one of {MODES} or a "
+                    f"registered quant codec spec (repro_torch.quant)")
         if self.topology not in TOPOLOGIES:
             raise ValueError(f"unknown comm topology {self.topology!r}; "
                              f"one of {TOPOLOGIES}")
@@ -150,7 +169,9 @@ def compress_leaf(g: torch.Tensor, noise: Noise, mode: str,
         k = max(1, int(policy.topk_frac * g.numel()))
         # int32 index + f32 value per kept element
         return sent, 8 * k + wire.HEADER_BYTES, new_state
-    raise ValueError(f"unknown comm mode {mode!r}; one of {MODES}")
+    # a registered quant codec spec: its round trip, its measured bytes
+    enc = qc.encode(mode, g, noise)
+    return qc.decode(mode, enc).to(g.dtype), qc.measured_bytes(mode, enc), state
 
 
 def _as_f32(nbytes) -> Union[float, torch.Tensor]:
@@ -168,3 +189,35 @@ def init_comm_state(grads: Dict[str, torch.Tensor], policy: CommPolicy
             for name, g in sorted(grads.items())
             if policy.mode_for(name, g.numel()) == MODE_TOPK_EF}
 
+
+def compress_tree(grads: Dict[str, torch.Tensor],
+                  noise: Callable[[str, Tuple[int, ...]], Noise],
+                  policy: CommPolicy,
+                  states: Optional[Dict[str, ErrorFeedbackState]] = None):
+    """Route a gradient dict through the wire, leaf by leaf in sorted name
+    order (the reference's flatten order, so the f32 byte totals add up in
+    its order). ``noise(name, shape)`` is what leaf ``name`` dithers with,
+    asked only for the modes that draw (the reference's leaf key
+    ``fold_in(key, name_salt(name))``; the flat reducer hands its
+    ``pack_noise``). Returns (grads_hat, new_states, telemetry) with
+    telemetry ``wire_bytes`` / ``dense_bytes``, 0-d f32 tensors; under
+    ``policy.collect_stats`` it also records one comm row under
+    ``policy.stats_tag``."""
+    states = dict(states or {})
+    first = next(iter(grads.values()))
+    wire_total = torch.zeros((), dtype=torch.float32, device=first.device)
+    dense_total = torch.zeros_like(wire_total)
+    out = {}
+    for name, g in sorted(grads.items()):
+        mode = policy.mode_for(name, g.numel())
+        leaf_noise = (None if mode in (MODE_DENSE, MODE_TOPK_EF)
+                      else noise(name, tuple(g.shape)))
+        out[name], nbytes, new_state = compress_leaf(
+            g, leaf_noise, mode, policy, states.get(name))
+        if new_state is not None:
+            states[name] = new_state
+        wire_total = wire_total + _as_f32(nbytes)
+        dense_total = dense_total + float(dense_nbytes(g.shape, torch.float32))
+    if policy.collect_stats:
+        tele.emit(policy.stats_tag, wire_total, dense_total)
+    return out, states, {"wire_bytes": wire_total, "dense_bytes": dense_total}

@@ -33,15 +33,18 @@ Counterpart of ``repro.comm.reducer``:
 
 Topologies: ``ps`` (:class:`_StackedPSReducer`); ``ring``, ``hier`` and
 ``butterfly`` (:class:`_AllReduceReducer`, the per-topology config built
-from the policy's ``s`` and ``pods``). ``bucket_bytes > 0`` wraps the
-reducer in the overlap scheduler (``repro_torch.comm.overlap``), bit-exact
-with the blocking reduce. Not ported: the reference's flat
-single-participant reducer over unstacked leaves without a mesh (the SSGD
-step always stacks; ROADMAP.md section 1, item 7.5).
+from the policy's ``s`` and ``pods``). ``stacked=False`` builds the flat
+single-participant reducer (:class:`_FlatPSReducer`, the trainer's wire
+model: ``compress_tree`` over unstacked leaves, with or without a mesh).
+``bucket_bytes > 0`` wraps the reducer in the overlap scheduler
+(``repro_torch.comm.overlap``), bit-exact with the blocking reduce.
+
+``parse_comm_program`` / ``format_comm_program`` are the ``comm:``
+section of the launcher's ``--program`` (``repro_torch.launch.program``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -53,7 +56,8 @@ from repro_torch.comm.compression import (MODE_DENSE, MODE_NSD, MODE_TOPK_EF,
                                           TOPO_BUTTERFLY, TOPO_HIER, TOPO_PS,
                                           TOPO_RING, CommPolicy,
                                           ErrorFeedbackState, _as_f32,
-                                          compress_leaf, init_comm_state,
+                                          compress_leaf, compress_tree,
+                                          init_comm_state,
                                           topk_error_feedback)
 from repro_torch.comm.p2p import Exchange
 from repro_torch.comm.reduce_base import hop_key, node_mean
@@ -62,7 +66,8 @@ from repro_torch.core.policy import name_salt
 from repro_torch.quant import codecs as qc
 from repro_torch.quant import wire
 
-__all__ = ["Reducer", "ReducerTelemetry", "reducer"]
+__all__ = ["Reducer", "ReducerTelemetry", "format_comm_program",
+           "parse_comm_program", "reducer"]
 
 
 class ReducerTelemetry(NamedTuple):
@@ -160,9 +165,14 @@ class Reducer:
                           Dict[str, ErrorFeedbackState]]:
         grads, tele, state = self._reduce(grads, key, int(step),
                                           dict(state or {}))
-        if self.policy.collect_stats:
-            comm_tele.emit(tele.wire_bytes, tele.dense_bytes)
+        if self.policy.collect_stats and not self._emits_stats:
+            comm_tele.emit(self.policy.stats_tag, tele.wire_bytes,
+                           tele.dense_bytes)
         return grads, tele, state
+
+    # a reducer whose _reduce records its own row (compress_tree's) sets
+    # this, so a reduce never counts twice
+    _emits_stats = False
 
     def _reduce(self, grads, key, step, state):
         raise NotImplementedError
@@ -171,6 +181,30 @@ class Reducer:
 def _zeros(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32,
                        device=next(iter(grads.values())).device)
+
+
+class _FlatPSReducer(Reducer):
+    """The single-participant wire model, the trainer's path: every leaf
+    (unstacked, the participant's own) through ``compress_tree`` with the
+    pack keys of (key, step, leaf), which records the comm row itself."""
+
+    _emits_stats = True
+
+    def init_state(self, params_or_grads: Dict[str, torch.Tensor]
+                   ) -> Dict[str, ErrorFeedbackState]:
+        return init_comm_state(params_or_grads, self.policy)
+
+    def _reduce(self, grads, key, step, state):
+        out, state, tele = compress_tree(
+            grads, lambda name, shape: self.pack_noise(key, step, name, (),
+                                                       shape),
+            self.policy, state)
+        zero = torch.zeros_like(tele["wire_bytes"])
+        return out, ReducerTelemetry(
+            wire_bytes=tele["wire_bytes"], dense_bytes=tele["dense_bytes"],
+            error_bound=zero, wire_ici_bytes=zero, wire_dcn_bytes=zero,
+            peak_dcn_bytes=zero, n_hops=1, packs_per_segment=1,
+            per_pod=1), state
 
 
 class _StackedPSReducer(Reducer):
@@ -385,16 +419,14 @@ def reducer(policy: CommPolicy, mesh=None, *, n_nodes: Optional[int] = None,
     leaves: ``n_nodes`` defaults to the mesh's extent (pods x nodes) and
     must equal it, ``stacked=True`` raises (a mesh reduce never takes a
     stack), and ``hier`` / ``butterfly`` need the mesh's pod axis at
-    ``policy.pods``. ``stacked=False`` names the reference's flat
-    single-participant reducer, which is not ported: it raises, with or
-    without a mesh.
+    ``policy.pods``. ``stacked=False`` builds the flat single-participant
+    reducer over unstacked leaves, as the reference does, with or without
+    a mesh (the reference also picks it when ``stacked`` and ``n_nodes``
+    are left out without a mesh; the port's callers stack there).
     """
     if stacked is False:
-        raise NotImplementedError(
-            "stacked=False selects the reference's flat single-participant "
-            "reducer, which is not ported (ROADMAP.md section 1, item 7.5); "
-            "pass stacked (n_nodes, ...) leaves, or each rank's own leaves "
-            "with a mesh")
+        return _overlapped(_FlatPSReducer(policy, 1, mesh, pod_axis,
+                                          node_axis))
     if mesh is not None:
         extent = _mesh_size(mesh, pod_axis, node_axis)
         if n_nodes is None:
@@ -412,7 +444,77 @@ def reducer(policy: CommPolicy, mesh=None, *, n_nodes: Optional[int] = None,
         red = _StackedPSReducer(policy, n_nodes, mesh, pod_axis, node_axis)
     else:
         red = _AllReduceReducer(policy, n_nodes, mesh, pod_axis, node_axis)
-    if policy.bucket_bytes > 0:
+    return _overlapped(red)
+
+
+def _overlapped(red: Reducer) -> Reducer:
+    """``red`` in the overlap scheduler when its policy buckets."""
+    if red.policy.bucket_bytes > 0:
         from repro_torch.comm.overlap import OverlapReducer
-        red = OverlapReducer(red, policy.bucket_bytes)
+        red = OverlapReducer(red, red.policy.bucket_bytes)
     return red
+
+
+# ---------------------------------------------------------------------------
+# the comm: program section
+# ---------------------------------------------------------------------------
+
+_COMM_KEYS = {
+    "topology": str, "default": str, "s": float, "chunk": int,
+    "min_leaf_size": int, "topk_frac": float, "pods": int,
+    "bucket_bytes": int, "stats": bool, "tag": str,
+}
+_KEY_TO_FIELD = {"stats": "collect_stats", "tag": "stats_tag"}
+
+
+def parse_comm_program(spec: str, base: Optional[CommPolicy] = None
+                       ) -> CommPolicy:
+    """A ``comm:`` section as a CommPolicy over ``base`` (default
+    ``CommPolicy()``): ``;``-separated ``key=value`` clauses (the keys of
+    ``_COMM_KEYS``; ``stats`` and ``tag`` set ``collect_stats`` and
+    ``stats_tag``) and ``rule PAT:MODE`` clauses, appended to
+    ``overrides`` (first match wins)::
+
+        topology=butterfly;pods=4;default=nsd;s=2.0;rule emb:dense
+
+    An unknown key raises with the known ones (an unknown topology or mode
+    in ``CommPolicy``); :func:`format_comm_program` round-trips."""
+    policy = base or CommPolicy()
+    kw: Dict[str, Any] = {}
+    overrides = list(policy.overrides)
+    for clause in spec.split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        if clause.startswith("rule "):
+            body = clause[len("rule "):]
+            if ":" not in body:
+                raise ValueError(f"comm rule needs PAT:MODE, got {clause!r}")
+            pat, mode = body.split(":", 1)
+            overrides.append((pat.strip(), mode.strip()))
+            continue
+        if "=" not in clause:
+            raise ValueError(f"comm program clause {clause!r} is neither "
+                             "key=value nor 'rule PAT:MODE'")
+        k, v = (x.strip() for x in clause.split("=", 1))
+        if k not in _COMM_KEYS:
+            raise ValueError(f"unknown comm program key {k!r}; one of "
+                             f"{sorted(_COMM_KEYS)}")
+        typ = _COMM_KEYS[k]
+        val = (v not in ("0", "false", "False")) if typ is bool else typ(v)
+        kw[_KEY_TO_FIELD.get(k, k)] = val
+    return policy.replace(overrides=tuple(overrides), **kw)
+
+
+def format_comm_program(policy: CommPolicy) -> str:
+    """A CommPolicy as a ``comm:`` section (parsing it round-trips)."""
+    default = CommPolicy()
+    parts = []
+    for key, typ in _COMM_KEYS.items():
+        field = _KEY_TO_FIELD.get(key, key)
+        val = getattr(policy, field)
+        if val == getattr(default, field):
+            continue
+        parts.append(f"{key}={int(val) if typ is bool else val}")
+    parts += [f"rule {pat}:{mode}" for pat, mode in policy.overrides]
+    return ";".join(parts)

@@ -10,14 +10,11 @@ A section starts at a whitespace-separated token that begins with
 such token belongs to it and goes verbatim to that subsystem's parser
 (``repro_torch.core.schedule.parse_program`` for ``dither:``,
 ``repro_torch.memory.policy.parse_memory_program`` for ``memory:``,
+``repro_torch.comm.reducer.parse_comm_program`` for ``comm:``,
 ``repro_torch.quant.parse_quant_program`` for ``quant:``). This module
 only splits; a colon inside a clause (``rule lm_head:off``) never opens a
 section. ``--policy-program`` and ``--memory-program`` stay as deprecated
 aliases of the first two sections (:func:`merge_legacy_flags`).
-
-The ``comm:`` section, and the ``quant:`` section's ``wire=`` key, split,
-parse and round-trip as in the reference, but the trainer's comm path is
-not ported yet: resolving either raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,10 +23,6 @@ import warnings
 from typing import Optional
 
 SECTIONS = ("dither", "memory", "comm", "quant")
-COMM_TODO = ("the trainer's gradient comm path (comm: section) is not "
-             "ported yet: ROADMAP.md section 1, item 7.5")
-WIRE_TODO = ("quant: wire= sets the trainer's gradient comm mode, whose path "
-             "is not ported yet: ROADMAP.md section 1, item 7.5")
 
 __all__ = ["SECTIONS", "LaunchSpec", "format_program", "merge_legacy_flags",
            "parse_program"]
@@ -57,22 +50,20 @@ class LaunchSpec:
         from repro_torch.memory.policy import parse_memory_program
         return parse_memory_program(self.memory)
 
-    def comm_policy(self):
-        """None: a non-empty comm section raises (not ported)."""
-        if self.comm:
-            raise NotImplementedError(COMM_TODO)
-        return None
+    def comm_policy(self, base=None):
+        """The comm section as a CommPolicy over ``base`` (None if the
+        section is empty)."""
+        if not self.comm:
+            return None
+        from repro_torch.comm.reducer import parse_comm_program
+        return parse_comm_program(self.comm, base)
 
     def quant_overrides(self):
-        """The quant section as a validated QuantProgram (None if empty); a
-        ``wire=`` key raises (the comm path is not ported)."""
+        """The quant section as a validated QuantProgram (None if empty)."""
         if not self.quant:
             return None
         from repro_torch.quant import parse_quant_program
-        qp = parse_quant_program(self.quant)
-        if qp.wire is not None:
-            raise NotImplementedError(WIRE_TODO)
-        return qp
+        return parse_quant_program(self.quant)
 
 
 def parse_program(spec: str) -> LaunchSpec:

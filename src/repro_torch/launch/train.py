@@ -24,7 +24,11 @@ kernel variant is reached through a phase or rule ``kernel``); the
 ``quant:`` section picks registered codecs per surface: ``grad=`` the
 cotangent codec (on the base policy, so phases and rules inherit it),
 ``resid=`` the residual default (``memory: default=SPEC``), ``mu=`` and
-``nu=`` AdamW's stored moments. A ``controller:`` clause in the dither
+``nu=`` AdamW's stored moments, ``wire=`` the gradients' comm mode. The
+``comm:`` section gives the trainer a ``repro_torch.comm.CommPolicy``
+(``quant: wire=`` sets its ``default``, or makes one): each step's
+gradients cross the flat single-participant wire before AdamW, and the
+history rows carry ``comm_wire_mb``. A ``controller:`` clause in the dither
 section holds each layer's sparsity at its target. ``--run-dir DIR``
 records the run (the dither, memory, phase, train and monitor streams and a
 manifest) into DIR, rendered by ``python -m repro_torch.obs.report DIR``;
@@ -44,9 +48,6 @@ the environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``--device cpu``. As the reference's flag, it only initialises the runtime:
 the trainer reduces nothing across processes (data-parallel training over
 processes is ``repro_torch.distributed.make_ssgd_step(..., mesh=)``).
-
-Not ported yet (ROADMAP.md section 1): the ``comm:`` section and ``quant:
-wire=`` (item 7.5), which raise.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm.compression import CommPolicy
 from repro_torch.configs import ARCH_IDS, get_model, get_smoke_model
 from repro_torch.core.policy import DitherPolicy
 from repro_torch.data.synthetic import TokenStreamConfig, token_batch
@@ -107,13 +109,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                          "meprop"], default="paper")
     ap.add_argument("--s", type=float, default=2.0)
     ap.add_argument("--program", default="",
-                    help="run program with 'dither:', 'memory:' and 'quant:' "
-                    "sections, e.g. \"dither: phase@0=off;phase@30=kernel;"
-                    "rule lm_head:off memory: default=nsd quant: mu=m8;"
-                    "nu=u8\" (see repro_torch.launch.program). The dither "
-                    "section builds on --dither/--s as the base policy; the "
+                    help="run program with 'dither:', 'memory:', 'comm:' and "
+                    "'quant:' sections, e.g. \"dither: phase@0=off;"
+                    "phase@30=kernel;rule lm_head:off memory: default=nsd "
+                    "comm: default=nsd;s=2.0 quant: mu=m8;nu=u8\" (see "
+                    "repro_torch.launch.program). The dither section builds "
+                    "on --dither/--s as the base policy; the comm section "
+                    "attaches a gradient CommPolicy to the trainer; the "
                     "quant section picks registered codecs per surface "
-                    "(grad/resid/mu/nu, see repro_torch.quant.program).")
+                    "(grad/wire/resid/mu/nu, see repro_torch.quant.program).")
     ap.add_argument("--policy-program", default="",
                     help="DEPRECATED: use --program \"dither: ...\"")
     ap.add_argument("--memory-program", default="",
@@ -167,8 +171,7 @@ def build(args: argparse.Namespace, device: Optional[torch.device] = None):
         args.arch)
     spec = merge_legacy_flags(args.program, args.policy_program,
                               args.memory_program)
-    spec.comm_policy()  # not ported: a comm: section raises
-    qo = spec.quant_overrides()  # wire= raises: not ported
+    qo = spec.quant_overrides()
     policy = (None if args.dither == "off"
               else DitherPolicy(variant=args.dither, s=args.s))
     if qo is not None and qo.grad is not None:
@@ -182,6 +185,11 @@ def build(args: argparse.Namespace, device: Optional[torch.device] = None):
         base = (policy if policy is not None
                 else DitherPolicy(variant="off", s=args.s))
         policy = spec.dither_program(base)
+    comm_policy = spec.comm_policy()
+    if qo is not None and qo.wire is not None:
+        comm_policy = (comm_policy.replace(default=qo.wire)
+                       if comm_policy is not None
+                       else CommPolicy(default=qo.wire))
     memory_program = spec.memory
     if qo is not None and qo.resid is not None:
         if memory_program:
@@ -213,8 +221,8 @@ def build(args: argparse.Namespace, device: Optional[torch.device] = None):
         TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                       log_every=max(args.steps // 10, 1),
                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
-        policy=policy, memory_policy=memory_program or None, device=device,
-        obs=obs)
+        policy=policy, memory_policy=memory_program or None,
+        comm_policy=comm_policy, device=device, obs=obs)
     fn = batch_fn_for(model, args.batch, args.seq, device)
 
     def batches() -> Iterator:

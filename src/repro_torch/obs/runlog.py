@@ -201,13 +201,21 @@ class RunObs:
 
     def on_step(self, step: int, metrics: Optional[Dict[str, float]] = None
                 ) -> None:
-        """Record the step's loss, run the monitors, flush every
+        """Record the step's loss, its comm bytes (a trainer's wire) and
+        error bound (an SSGD reduce's), run the monitors, flush every
         ``FLUSH_EVERY`` steps."""
         bus = self.runlog.bus
         metrics = metrics or {}
         if "loss" in metrics:
             bus.record("train", "train", [float(step),
                                           float(metrics["loss"])])
+        if "comm_wire_bytes" in metrics:
+            bus.record("comm", "step",
+                       [float(metrics["comm_wire_bytes"]),
+                        float(metrics.get("comm_dense_bytes", 0.0))])
+        if "comm_error_bound" in metrics:
+            bus.record("bound", "reduce",
+                       [float(step), float(metrics["comm_error_bound"])])
         with self.tracer.span("monitor"):
             self.monitors.tick(step)
         if step % FLUSH_EVERY == 0:

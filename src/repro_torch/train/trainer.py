@@ -23,7 +23,8 @@ metrics as host floats (the one host sync a step that obs adds; without obs
 the loop adds none), and ``fit`` ends with ``obs.finish()``.
 
 Checkpoints: with ``ckpt_every`` and ``ckpt_dir`` set, ``fit`` saves the
-tree ``params``, ``opt`` and (with a controller) ``ctrl``, under the
+tree ``params``, ``opt``, (with ``topk_ef`` residuals) ``comm`` and (with
+a controller) ``ctrl``, under the
 reference's key names, every ``ckpt_every`` steps through a
 ``repro_torch.train.CheckpointManager`` (async, keeping the newest
 three), and waits for the last write before it returns.
@@ -35,8 +36,23 @@ checkpoint without one leaves the scales at their start values. When
 decides) has been triggered, the loop checkpoints at the next step boundary
 and stops. With ``obs`` the saves run under the span ``checkpoint``.
 
-Not ported yet (ROADMAP.md section 1, item 7.5): the gradient comm reducer
-(its error-feedback residuals would join the tree as ``comm``).
+The gradient wire: with ``comm_policy`` (a ``repro_torch.comm.CommPolicy``)
+each step's gradients cross the flat single-participant reducer
+(``comm.reducer(policy, stacked=False)``) between ``grads`` and the update,
+under the span ``step/comm``. The reducer sees the reference's leaves: its
+names (``layers/attn/wq``) with each block stack's gradients stacked along
+a leading (n_layers, ...) axis, so each leaf's mode, Delta and pack keys
+are the reference's. The pack keys fold the comm stream key
+``fold_in(base key, 0xC033)`` (the reference's salt) with the step and the
+leaf's ``name_salt`` (``Reducer.pack_noise``). AdamW gets each gradient in
+the dtype the reference's ``compress_leaf`` returns (the leaf's own, f32
+for ``topk_ef``). The ``topk_ef`` residuals start at 0
+(``init_comm_state``), ride the checkpoint as ``comm`` under the
+reference's leaf names, and restart at 0 from a checkpoint without them.
+The step's metrics gain ``comm_wire_bytes`` and ``comm_dense_bytes``, each
+history row ``comm_wire_mb`` and, with ``topology`` (a
+``repro_torch.launch.mesh.NodeTopology``), ``comm.pricing.price_step_comm``'s
+``comm_ici_s`` and ``comm_dcn_s``.
 """
 from __future__ import annotations
 
@@ -48,9 +64,13 @@ from typing import Any, Dict, Iterator, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch.comm.compression import CommPolicy
+from repro_torch.comm.reducer import reducer as comm_reducer
+from repro_torch.convert import STACKS
 from repro_torch.core.policy import DitherCtx, DitherPolicy, fold_in
 from repro_torch.core.schedule import ControllerDriver, PolicyProgram, as_program
 from repro_torch.device import resolve_device
+from repro_torch.comm.pricing import price_step_comm
 from repro_torch.memory.policy import MemoryPolicy, as_memory_policy
 from repro_torch.models.api import Model
 from repro_torch.obs.trace import annotate
@@ -58,9 +78,11 @@ from repro_torch.optim.optimizers import OptConfig, apply_updates, init_opt_stat
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import PreemptionGuard
 from repro_torch.utils import get_logger
+from repro_torch.utils.pytree import map_leaves
 
 log = get_logger("repro_torch.trainer")
 STEP_SALT = 0xD17E  # the reference trainer's fold of its dither base key
+COMM_SALT = 0xC033  # and of its comm stream key
 
 
 @dataclasses.dataclass
@@ -77,13 +99,15 @@ class Trainer:
     """Trains ``model`` (a ``repro_torch.models.api.Model``) on ``device``
     (CUDA unless named) under ``policy`` (a DitherPolicy, a PolicyProgram
     or None for plain backprop) and ``memory_policy`` (a MemoryPolicy, its
-    spec string or None); ``obs`` (a ``repro_torch.obs.RunObs``) records
-    the run into its run directory."""
+    spec string or None); ``comm_policy`` sends the gradients through the
+    wire, ``topology`` prices it; ``obs`` (a ``repro_torch.obs.RunObs``)
+    records the run into its run directory."""
 
     def __init__(self, model: Model, opt_cfg: OptConfig, tcfg: TrainerConfig,
                  policy: Union[None, DitherPolicy, PolicyProgram] = None,
                  memory_policy: Union[None, str, MemoryPolicy] = None,
-                 device: Optional[torch.device] = None, obs=None):
+                 device: Optional[torch.device] = None, obs=None,
+                 comm_policy: Optional[CommPolicy] = None, topology=None):
         if tcfg.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {tcfg.grad_accum}")
         self.model, self.opt_cfg, self.tcfg = model, opt_cfg, tcfg
@@ -91,6 +115,11 @@ class Trainer:
         self.memory_policy = as_memory_policy(memory_policy)
         self.device = resolve_device(device)
         self.base_key = fold_in(tcfg.seed, STEP_SALT)
+        self.comm_policy, self.topology = comm_policy, topology
+        self._reducer = (comm_reducer(comm_policy, stacked=False)
+                         if comm_policy is not None else None)
+        self.comm_key = fold_in(self.base_key, COMM_SALT)
+        self._comm_state: Optional[Dict[str, Any]] = None
         # the sparsity controller's host protocol (no-ops without one)
         self._ctrl = ControllerDriver(self.program)
         self.obs = obs
@@ -137,6 +166,8 @@ class Trainer:
 
     def _ckpt_tree(self) -> Dict[str, Any]:
         tree = {"params": self.params, "opt": self.opt_state}
+        if self._comm_state:
+            tree["comm"] = self._comm_state
         if self._ctrl.state:
             tree["ctrl"] = self._ctrl.state
         return tree
@@ -152,12 +183,28 @@ class Trainer:
         self.net = self.init_params()
         self.params = dict(self.net.named_parameters())
         self.opt_state = init_opt_state(self.params, self.opt_cfg)
+        self._comm_state = self._init_comm_state()
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            state = self.ckpt.restore(
-                {"params": self.params, "opt": self.opt_state}, inplace=True)
+            try:
+                state = self.ckpt.restore(self._ckpt_tree(), inplace=True)
+            except KeyError:
+                # the checkpoint predates the comm subtree: residuals at 0
+                state = self.ckpt.restore(
+                    {"params": self.params, "opt": self.opt_state},
+                    inplace=True)
             self.opt_state = state["opt"]
             log.info("restored checkpoint at step %d", self.opt_state["step"])
         return self.net, self.opt_state
+
+    def _init_comm_state(self) -> Dict[str, Any]:
+        """Zero residuals for the reference's leaves that the policy sends
+        as ``topk_ef`` (their shapes found on the meta device)."""
+        if self._reducer is None:
+            return {}
+        meta = wire_leaves({n: p.detach().to("meta")
+                            for n, p in self.params.items()})
+        return map_leaves(lambda _, x: torch.zeros_like(x, device=self.device),
+                          self._reducer.init_state(meta))
 
     def _micro_loss(self, batch, ctx: Optional[DitherCtx], i: int):
         c = ctx.with_key(fold_in(ctx.key, i)) if ctx is not None else None
@@ -189,15 +236,39 @@ class Trainer:
                 loss_acc = loss_acc + lv.detach() / n
             return loss_acc, dict(zip(names, acc))
 
+    def comm(self, grads: Optional[Dict[str, torch.Tensor]], step: int
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Step ``step``'s gradients (``grads``, or each parameter's
+        ``.grad``, which it clears) through the wire: what the receiving end
+        reconstructs, by parameter name, and the step's comm metrics."""
+        if grads is None:
+            grads = {}
+            for n, p in self.params.items():
+                grads[n] = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.grad = None
+        out, tele, self._comm_state = self._reducer.reduce(
+            wire_leaves(grads), self.comm_key, step, self._comm_state)
+        out = param_leaves(out)
+        return ({n: out[n] for n in self.params},
+                {"comm_wire_bytes": tele.wire_bytes,
+                 "comm_dense_bytes": tele.dense_bytes})
+
     def train_step(self, batch: Dict[str, torch.Tensor], step: int
                    ) -> Dict[str, Any]:
-        """One optimizer step: gradients, then the update. Returns the
-        metrics (``loss`` 0-d, ``lr``, ``grad_norm`` with a clip)."""
+        """One optimizer step: gradients, the wire (with a comm policy),
+        then the update. Returns the metrics (``loss`` 0-d, ``lr``,
+        ``grad_norm`` with a clip, ``comm_wire_bytes`` and
+        ``comm_dense_bytes`` with a comm policy)."""
         loss, grads = self.grads(batch, step)
+        comm_metrics = {}
+        if self._reducer is not None:
+            with annotate("step/comm"):
+                grads, comm_metrics = self.comm(grads, step)
         with annotate("step/update"):
             metrics = apply_updates(self.params, self.opt_state, self.opt_cfg,
                                     grads=grads)
         metrics["loss"] = loss
+        metrics.update(comm_metrics)
         return metrics
 
     def fit(self, batch_iter: Iterator, params: Optional[nn.Module] = None,
@@ -206,7 +277,7 @@ class Trainer:
         ``total_steps``; without ``params`` the parameters and state come
         from :meth:`restore_or_init`. Returns the parameters, the state and
         the loss history (a row ``{"step", "loss"}`` every ``log_every``
-        steps)."""
+        steps, with the comm fields above under a comm policy)."""
         if params is None:
             self.restore_or_init()
         else:
@@ -214,6 +285,8 @@ class Trainer:
             self.params = dict(self.net.named_parameters())
             self.opt_state = (opt_state if opt_state is not None
                               else init_opt_state(self.params, self.opt_cfg))
+            if self._comm_state is None:  # no residuals held yet
+                self._comm_state = self._init_comm_state()
         obs = self.obs
         if obs is not None:
             sp = obs.span
@@ -246,7 +319,14 @@ class Trainer:
                 obs.on_step(step + 1, {k: float(v) for k, v in metrics.items()})
             if self.tcfg.log_every and (step + 1) % self.tcfg.log_every == 0:
                 loss = float(metrics["loss"])
-                self.history.append({"step": step + 1, "loss": loss})
+                row = {"step": step + 1, "loss": loss}
+                if "comm_wire_bytes" in metrics:
+                    wire = float(metrics["comm_wire_bytes"])
+                    row["comm_wire_mb"] = wire / 1e6
+                    if self.topology is not None:
+                        row.update(price_step_comm(
+                            wire, pods=self.topology.pods))
+                self.history.append(row)
                 log.info("step %d loss %.4f (%.2f s)", step + 1, loss,
                          time.time() - t0)
             if self.ckpt is not None and (step + 1) % self.tcfg.ckpt_every == 0:
@@ -257,6 +337,42 @@ class Trainer:
             obs.finish()
         return {"params": self.net, "opt_state": self.opt_state,
                 "history": self.history}
+
+
+def wire_leaves(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's per-block tensors by parameter name (``layers.3.attn.wq``)
+    -> the reference's leaves by path name (``layers/attn/wq``), each block
+    stack's tensors stacked along a new leading axis in layer order. Pops
+    ``tensors`` as it goes, so a stacked group's blocks can be freed."""
+    out: Dict[str, torch.Tensor] = {}
+    groups: Dict[str, Dict[int, str]] = {}
+    for name in list(tensors):
+        stack, rest = name.split(".", 1)
+        if stack in STACKS:
+            i, rest = rest.split(".", 1)
+            groups.setdefault(f"{stack}/{rest.replace('.', '/')}",
+                              {})[int(i)] = name
+        else:
+            out[name.replace(".", "/")] = tensors.pop(name)
+    for leaf, by_layer in groups.items():
+        out[leaf] = torch.stack([tensors.pop(by_layer[i])
+                                 for i in range(len(by_layer))])
+    return out
+
+
+def param_leaves(leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`wire_leaves`: each stacked leaf's blocks as
+    views, by the port's parameter names."""
+    out: Dict[str, torch.Tensor] = {}
+    for leaf, t in leaves.items():
+        stack, rest = leaf.split("/", 1)
+        rest = rest.replace("/", ".")
+        if stack in STACKS:
+            for i in range(t.shape[0]):
+                out[f"{stack}.{i}.{rest}"] = t[i]
+        else:
+            out[f"{stack}.{rest}"] = t
+    return out
 
 
 def _micro(x: torch.Tensor, n: int, i: int) -> torch.Tensor:

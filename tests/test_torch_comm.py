@@ -406,11 +406,16 @@ def test_reducer_refuses_what_is_not_ported(kw, ref_delta):
 
 
 @pytest.mark.parametrize("kw", [dict(topology="mesh"), dict(default="int3"),
-                                dict(overrides=(("fc", "bf16"),)),
+                                dict(overrides=(("fc", "int4@g3"),)),
                                 dict(bucket_bytes=-1), dict(chunk=512)])
 def test_comm_policy_rejects(kw):
+    """A registered codec spec is a comm mode (``bf16``, ``int4@g32``), so
+    an override is refused only when its spec does not parse (an odd int4
+    group)."""
     with pytest.raises(ValueError):
         comm.CommPolicy(**kw)
+    assert comm.CommPolicy(overrides=(("fc", "bf16"),)).mode_for("fc0", 1) \
+        == jcomp.CommPolicy(overrides=(("fc", "bf16"),)).mode_for("fc0", 1)
 
 
 @pytest.mark.parametrize("topology", ["ps", "ring"])

@@ -267,19 +267,16 @@ def _baseline():
     return _BASE["run"]
 
 
-# the reference's TPU-link pricing, which the port does not compute
-PRICING = {"comm_speedup", "ici_us", "dcn_us", "total_us"}
-
-
 def test_bench_rows_carry_the_reference_keys():
     res, rows, topo = distributed_nodes.bench(steps=2, device="cpu")
     base = _baseline().by_name()
     assert [r.name for r in res] == ["fig5-6/N=1", "fig5-6/N=2", "fig5-6/N=4",
                                      "topology/ring/N=8", "topology/hier/N=8",
                                      "topology/butterfly/N=8",
-                                     "butterfly/vs-tree/N=8"]
+                                     "butterfly/vs-tree/N=8",
+                                     "overlap/hier-bucketed/N=4"]
     for r in res:
-        assert set(r.derived) == set(base[r.name].derived) - PRICING, r.name
+        assert set(r.derived) == set(base[r.name].derived), r.name
         assert r.gates == base[r.name].gates, r.name
         assert r.context == base[r.name].context, r.name
     assert [row["n_nodes"] for row in rows] == [1, 2, 4]
@@ -297,22 +294,29 @@ def test_bench_rows_carry_the_reference_keys():
     vs = topo["butterfly"]
     assert (vs["maxdiff_g1"], vs["packs_diff"], vs["peak_excess"]) == (0, 0, 0)
     assert 0 < vs["peak_ratio"] < 1
+    # priced on the H100 platform's links: the ring's rounds wait on the
+    # slow axis (50 GB/s against NVLink's 450), the two-level reduces add
+    # their phases
+    assert ring["dcn_s"] == ring["total_s"] == pytest.approx(
+        ring["wire_bytes"] / 8 / 50e9)
+    for row in (hier, bfly):
+        assert row["total_s"] == pytest.approx(row["ici_s"] + row["dcn_s"])
+    ovl = topo["overlap"]
+    assert (ovl["maxdiff"], ovl["wire_diff"], ovl["n_buckets"]) == (0, 0, 3)
+    assert ovl["eff_gap"] <= 0.35 and len(ovl["bucket_s"]) == 3
 
 
-def test_check_gates_the_ported_rows_and_names_the_rest():
+def test_check_gates_every_baseline_row():
+    """Every baseline row is gated, the overlap row's zero bands and its
+    efficiency gap among them; a regression or a missing row fails."""
     baseline = _baseline()
-    names = [n for n, _ in distributed_nodes.not_ported(baseline)]
-    assert names == ["overlap/hier-bucketed/N=4"]
-    assert all("ROADMAP.md" in item and "item 9" in item
-               for _, item in distributed_nodes.not_ported(baseline))
-    ported = [r for r in baseline.results if r.name not in names]
 
     def current(scale=None):
         out = []
-        for r in ported:
-            derived = {k: v for k, v in r.derived.items() if k not in PRICING}
+        for r in baseline.results:
+            derived = dict(r.derived)
             if scale and scale[0] in derived:
-                derived[scale[0]] *= scale[1]
+                derived[scale[0]] = scale[1](derived[scale[0]])
             out.append(BenchResult(name=r.name, value=r.value, unit=r.unit,
                                    derived=derived, gates=r.gates))
         return out
@@ -327,7 +331,12 @@ def test_check_gates_the_ported_rows_and_names_the_rest():
             assert (name, metric) in gated
     for metric in ("maxdiff_g1", "packs_diff", "peak_excess", "error_bound"):
         assert ("butterfly/vs-tree/N=8", metric) in gated
-    assert len(gated) == 3 * 4 + 3 * 3 + 4
-    assert not distributed_nodes.check(current(("wire_ratio", 1.2)),
+    for metric in ("maxdiff", "wire_diff", "n_buckets", "eff_gap"):
+        assert ("overlap/hier-bucketed/N=4", metric) in gated
+    assert len(gated) == 3 * 4 + 3 * 3 + 4 + 4
+    assert not distributed_nodes.check(current(("wire_ratio",
+                                                lambda v: v * 1.2)),
+                                       baseline).ok
+    assert not distributed_nodes.check(current(("eff_gap", lambda v: 0.4)),
                                        baseline).ok
     assert not distributed_nodes.check(current()[:-1], baseline).ok  # missing

@@ -27,6 +27,7 @@ import torch.multiprocessing as mp  # noqa: E402
 
 import mesh_ranks as mr  # noqa: E402
 from repro_torch import comm  # noqa: E402
+from repro_torch.core.policy import name_salt  # noqa: E402
 from repro_torch.quant import wire  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -297,7 +298,7 @@ def test_mesh_mismatches_raise(world4):
     assert "4 ranks but the topology has 1 pods x 3 nodes" in msgs["world_size"]
     assert "n_nodes (2) != the mesh's extent (4)" in msgs["n_nodes"]
     assert "stacked=True" in msgs["stacked"]
-    assert "item 7.5" in msgs["stacked_false"]
+    assert msgs["stacked_false"] == "_FlatPSReducer"
     assert "batch_axes ('data',) with mesh axes ('nodes',)" in msgs["loader_axes"]
     assert msgs["loader_axes_ok"] is None
     assert "pods (4) != mesh 'pods' axis size (2)" in msgs["pods"]
@@ -330,15 +331,33 @@ def test_process_reduce_equals_reference_mesh(topology, reference, world8):
 
 
 @pytest.mark.parametrize("topology", ["ps", "ring", "hier", "butterfly"])
-def test_reducer_flat_selection_raises(topology):
-    """``stacked=False`` names the reference's flat reducer, which is not
-    ported: it raises rather than reading a leaf's first axis as nodes."""
-    pol = comm.CommPolicy(topology=topology, pods=2 if topology in
+def test_reducer_flat_selection_builds_the_flat_reducer(topology):
+    """``stacked=False`` builds the reference's flat single-participant
+    reducer whatever the topology: unstacked leaves through
+    ``compress_tree``, one pack a leaf, the leaf's first axis never read
+    as nodes; with ``bucket_bytes`` the overlap scheduler around it, bit
+    for bit."""
+    pol = comm.CommPolicy(topology=topology, s=2.0, pods=2 if topology in
                           ("hier", "butterfly") else 1)
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        comm.reducer(pol, stacked=False)
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        comm.reducer(pol, n_nodes=1, stacked=False)
+    g = {"w": torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 96)).astype(np.float32)), "b": torch.ones(8)}
+    for red in (comm.reducer(pol, stacked=False),
+                comm.reducer(pol, n_nodes=1, stacked=False)):
+        assert type(red).__name__ == "_FlatPSReducer"
+        assert set(red.init_state(g)) == set()
+        got, tele, _ = red.reduce(g, mr.KEY, 2)
+        want, _, wt = comm.compress_tree(
+            g, lambda n, shape: comm.hop_key(mr.KEY, 2, name_salt(n)), pol)
+        for n in g:
+            assert torch.equal(got[n], want[n]) and got[n].shape == g[n].shape
+        assert float(tele.wire_bytes) == float(wt["wire_bytes"])
+        assert (tele.n_hops, tele.packs_per_segment) == (1, 1)
+    bucketed = comm.reducer(pol.replace(bucket_bytes=512), stacked=False)
+    assert type(bucketed.base).__name__ == "_FlatPSReducer"
+    got_b, tele_b, _ = bucketed.reduce(g, mr.KEY, 2)
+    assert all(torch.equal(got_b[n], got[n]) for n in g)
+    assert float(tele_b.wire_bytes) == float(tele.wire_bytes)
+    assert tele_b.n_buckets == 2
 
 
 def test_loader_batch_axes_need_the_mesh_axes():

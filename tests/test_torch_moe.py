@@ -87,9 +87,22 @@ def test_positions_in_expert_match_reference():
 @pytest.mark.parametrize("router", ["drawn", "zero"])
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "dbrx-132b"])
 def test_routing_matches_reference(arch, router):
-    """Choices, positions and keep exact; the renormalised probabilities
-    rtol 1e-6; the aux loss within 1e-6. A zero router ties every expert:
-    both pick experts 0..k-1."""
+    """Choices, positions and keep exact; the aux loss within 1e-6. A zero
+    router ties every expert: both pick experts 0..k-1.
+
+    The renormalised probabilities are held to a band derived from a
+    float64 evaluation of the same routing (the same x, router and
+    choices). Each side's f32 router product (the port's ``torch.matmul``,
+    the reference's ``_plain_matmul``) sits D from the f64 product; a
+    logit error D moves a renormalised top-k probability by at most
+    exp(2D) - 1 relative. Each side's probabilities must lie within that
+    of the float64 ones, plus 8 ulps of 2^-24 for its f32 softmax, and the
+    two sides within the sum of their bands. Measured on an AVX-512 host,
+    moonshot drawn: D 1.4e-6 for the port (5.9 ulps of its largest logit,
+    MKL's summation order) and 4.6e-7 for the reference; the port's
+    probabilities 9.9e-7 from the float64 ones (band 3.3e-6), the
+    reference's 2.9e-7 (1.4e-6), the two 1.0e-6 apart (band 4.7e-6). A zero
+    router has D = 0: both sides within 4.8e-7 of each other."""
     jcfg, cfg, d = _cfgs(arch)
     jp, tp = _moe_params(jcfg, d)
     if router == "zero":
@@ -100,8 +113,22 @@ def test_routing_matches_reference(arch, router):
     ji, jpr, jaux = jmoe._routing(jp, jnp.asarray(x), jcfg, None)
     ti, tpr, taux = moe._routing(tp, torch.from_numpy(x), cfg, None)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    logits = x.astype(np.float64) @ jp["router"].astype(np.float64)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    top = np.take_along_axis(e / e.sum(-1, keepdims=True), np.asarray(ji), -1)
+    top /= top.sum(-1, keepdims=True)
+    port_logits = torch.matmul(torch.from_numpy(x), tp["router"].detach())
+    ref_logits = jdithered._plain_matmul(jnp.asarray(x),
+                                         jnp.asarray(jp["router"]))
+    band = {}
+    for side, lg, pr in (("port", port_logits.numpy(), tpr.detach().numpy()),
+                         ("ref", np.asarray(ref_logits), np.asarray(jpr))):
+        drift = np.abs(lg.astype(np.float64) - logits).max()
+        band[side] = np.expm1(2 * drift) + 8 * 2.0 ** -24
+        dist = np.max(np.abs(pr.astype(np.float64) - top) / top)
+        assert dist <= band[side], (side, dist, drift)
     np.testing.assert_allclose(tpr.detach().numpy(), np.asarray(jpr),
-                               rtol=1e-6)
+                               rtol=band["port"] + band["ref"])
     assert abs(float(taux) - float(jaux)) <= 1e-6
     if router == "zero":
         assert (ti.numpy() == np.arange(cfg.top_k)).all()

@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.launch import program as jprog  # noqa: E402
+from repro_torch.comm.reducer import parse_comm_program  # noqa: E402
 from repro_torch.core.policy import DitherPolicy  # noqa: E402
 from repro_torch.core.schedule import parse_program as parse_dither  # noqa: E402
 from repro_torch.launch import program  # noqa: E402
@@ -92,12 +93,23 @@ def test_sections_resolve_through_their_parsers():
     assert spec.comm_policy() is None and spec.quant_overrides() is None
 
 
-@pytest.mark.parametrize("spec,item", [
-    ("comm: topology=ring", "item 7.5"), ("quant: wire=nsd", "item 7.5")])
-def test_unported_sections_raise(spec, item):
+@pytest.mark.parametrize("spec,want", [
+    ("comm: topology=ring;stats=1", dict(topology="ring", default="nsd",
+                                         collect_stats=True)),
+    ("quant: wire=int4@g32", dict(topology="ps", default="int4@g32",
+                                  collect_stats=False))])
+def test_comm_and_wire_sections_reach_the_trainer(spec, want):
+    """A comm: section resolves to the reference's CommPolicy, and quant:
+    wire= sets its default (or makes one); the launcher hands it to the
+    trainer's flat reducer."""
     s = program.parse_program(spec)
-    with pytest.raises(NotImplementedError, match=item):
-        s.comm_policy() if s.comm else s.quant_overrides()
-    with pytest.raises(NotImplementedError, match=item):
-        launch_train.main(["--arch", "gemma-2b", "--steps", "1",
-                           "--device", "cpu", "--program", spec])
+    if s.comm:
+        assert s.comm_policy() == parse_comm_program(s.comm)
+    else:
+        assert s.quant_overrides().wire == want["default"]
+    trainer = launch_train.build(launch_train.parse_args(
+        ["--arch", "gemma-2b", "--steps", "1", "--device", "cpu",
+         "--program", spec]))[0]
+    pol = trainer.comm_policy
+    assert {k: getattr(pol, k) for k in want} == want
+    assert type(trainer._reducer).__name__ == "_FlatPSReducer"
